@@ -1,0 +1,362 @@
+"""PyTorch compute backend: the engine behind the port's PLONK prover,
+ported from plonkit_tpu/backend_jax.py.
+
+Vectors are `FrVec` handles over [N, 8] int32 Montgomery rows
+(gpu/mont.py) that stay on the backend's device; python ints cross the
+boundary only for file IO and transcript scalars.  Every field operation
+goes through the kernel wrappers (gpu/field_kernels.py K1/K2, gpu/ntt.py
+K3): on the card each is one kernel launch, on the CPU the plain version.
+The JAX package's fused programs (_gate_residual_jit, _quotient_column_jit,
+_perm_grand_product_jit, the scans) become the same sequences of K1/K2
+launches that they compose from pk.mul/pk.add; fusing them is later work.
+Commitments run on the host (backend.HostMSMContext).
+"""
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .backend import HostMSMContext
+from .fields import FR_GENERATOR, FR_MODULUS as R, fr_inv, get_domain_omega
+from .gpu import field_kernels as fk, ntt as gntt
+from .gpu.mont import FR, NLIMBS, to_numpy, to_tensor
+
+# Coset transforms at or above this many elements run as `factor` split
+# n-point transforms (as backend_jax._SPLIT_NTT_MIN): 2^24 = the LDE of a
+# 2^22 domain.
+SPLIT_NTT_MIN = 1 << 24
+
+
+class FrVec:
+    """Device-resident vector of Fr elements (Montgomery form)."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: torch.Tensor):
+        self.data = data
+
+    def __len__(self):
+        return self.data.shape[0]
+
+
+class TorchBackend:
+    def __init__(self, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TorchBackend: no CUDA device (the CPU path "
+                               "must be asked for with device='cpu')")
+        self._msm_cache = {}
+
+    # -- helpers -----------------------------------------------------------
+
+    def _const(self, k: int, n: int) -> torch.Tensor:
+        return FR.const(k % R, n, self.device)
+
+    def _ones(self, n: int) -> torch.Tensor:
+        return self._const(1, n)
+
+    def _mul(self, a, b):
+        return fk.mul(FR, a, b)
+
+    def _add(self, a, b):
+        return fk.add(FR, a, b)
+
+    def _scale(self, a: torch.Tensor, k: int) -> torch.Tensor:
+        return fk.mul(FR, a, self._const(k, a.shape[0]))
+
+    def _prefix_products(self, x: torch.Tensor) -> torch.Tensor:
+        """Inclusive prefix products by Hillis-Steele rounds (one K1
+        launch per round), as backend_jax._prefix_products_body."""
+        n = x.shape[0]
+        ones = self._ones(n)
+        p = x
+        for i in range(max(1, (n - 1).bit_length())):
+            d = 1 << i
+            p = self._mul(p, torch.cat([ones[:d], p[:n - d]]))
+        return p
+
+    def _suffix_products(self, x: torch.Tensor) -> torch.Tensor:
+        """S_i = prod_{j>=i} x_j (Hillis-Steele)."""
+        n = x.shape[0]
+        ones = self._ones(n)
+        p = x
+        for i in range(max(1, (n - 1).bit_length())):
+            d = 1 << i
+            p = self._mul(p, torch.cat([p[d:], ones[:d]]))
+        return p
+
+    def _suffix_sums(self, v: torch.Tensor) -> torch.Tensor:
+        """S_k = sum_{j>=k} v_j (Hillis-Steele, one K2a launch per round)."""
+        n = v.shape[0]
+        zeros = torch.zeros_like(v)
+        p = v
+        for i in range(max(1, (n - 1).bit_length())):
+            d = 1 << i
+            p = self._add(p, torch.cat([p[d:], zeros[:d]]))
+        return p
+
+    def _shift_in_one(self, factors: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self._ones(1), factors[:-1]])
+
+    def _batch_inverse(self, v: torch.Tensor) -> torch.Tensor:
+        """Montgomery batch inversion (zeros map to zero): two product
+        scans, one scalar inverse, two combining products.  The scalar
+        inverse of the total is taken on the host (one 32-byte read back),
+        where backend_jax runs a one-lane Fermat ladder on the device."""
+        n = v.shape[0]
+        one = self._ones(n)
+        zero_mask = (v == 0).all(dim=1, keepdim=True)
+        x = torch.where(zero_mask, one, v)
+        pre = self._prefix_products(x)
+        suf = self._suffix_products(x)
+        total = self._to_ints(pre[n - 1:n])[0]
+        pre_excl = torch.cat([one[:1], pre[:n - 1]])
+        suf_excl = torch.cat([suf[1:], one[:1]])
+        out = self._mul(pre_excl, suf_excl)
+        out = self._scale(out, fr_inv(total))
+        return torch.where(zero_mask, torch.zeros_like(out), out)
+
+    def _to_ints(self, data: torch.Tensor) -> List[int]:
+        raw = fk.mul(FR, data.contiguous(), FR.const_raw(1, data.shape[0], self.device))
+        return FR.from_limbs_np(to_numpy(raw))
+
+    # -- conversions ---------------------------------------------------------
+
+    def from_ints(self, values: Sequence[int], pad_to: int = None) -> FrVec:
+        vals = [v % R for v in values]
+        if pad_to is not None and len(vals) < pad_to:
+            vals += [0] * (pad_to - len(vals))
+        return self.from_raw_limbs(FR.to_limbs_np(vals))
+
+    def from_raw_limbs(self, raw: np.ndarray) -> FrVec:
+        """[N, 8] uint32 raw (canonical) limb rows -> Montgomery vector."""
+        t = to_tensor(raw, self.device)
+        return FrVec(fk.mul(FR, t, FR.const_raw(FR.r2_mod_p, t.shape[0], self.device)))
+
+    def to_ints(self, v: FrVec) -> List[int]:
+        return self._to_ints(v.data)
+
+    # -- NTT -----------------------------------------------------------------
+
+    def ntt(self, v: FrVec) -> FrVec:
+        return FrVec(gntt.ntt(v.data))
+
+    def intt(self, v: FrVec) -> FrVec:
+        return FrVec(gntt.intt(v.data))
+
+    def coset_intt(self, v: FrVec, shift: int = FR_GENERATOR) -> FrVec:
+        if len(v) >= SPLIT_NTT_MIN and len(v) % 4 == 0:
+            return self._coset_intt_split(v, 4, shift)
+        return FrVec(gntt.coset_intt(v.data, shift))
+
+    def coset_lde(self, v: FrVec, factor: int, shift: int = FR_GENERATOR) -> FrVec:
+        if len(v) * factor >= SPLIT_NTT_MIN:
+            return self._coset_lde_split(v, factor, shift)
+        return FrVec(gntt.coset_lde(v.data, factor, shift))
+
+    # -- split (workspace-bounded) large coset transforms --------------------
+    # As backend_jax: LDE[F*t + j] = coset_ntt_n(p, g*eta^j)[t] with
+    # eta = omega_{F*n}; the inverse recombines coset_intt_n(v[j::F],
+    # g*eta^j) with a 4-point DFT across j (see backend_jax.py:458-468).
+
+    def _coset_lde_split(self, v: FrVec, factor: int, shift: int) -> FrVec:
+        n = len(v)
+        eta = get_domain_omega(factor * n)
+        parts = [gntt.coset_ntt(v.data, shift * pow(eta, j, R) % R)
+                 for j in range(factor)]
+        # [n, F, 8] -> [F*n, 8] puts part j at rows F*t + j
+        return FrVec(torch.stack(parts, dim=1).reshape(factor * n, NLIMBS))
+
+    def _coset_intt_split(self, v: FrVec, factor: int, shift: int) -> FrVec:
+        total = len(v)
+        n = total // factor
+        eta = get_domain_omega(total)
+        u_inv = fr_inv(pow(eta, n, R))
+        g_n_inv = fr_inv(pow(shift, n, R))
+        f_inv = fr_inv(factor)
+        cs = [FrVec(gntt.coset_intt(v.data[j::factor].contiguous(),
+                                    shift * pow(eta, j, R) % R))
+              for j in range(factor)]
+        chunks = []
+        for m in range(factor):
+            gm = pow(g_n_inv, m, R) * f_inv % R
+            acc = self.scale(cs[0], gm)
+            for j in range(1, factor):
+                acc = self.scale_add(cs[j], gm * pow(u_inv, j * m, R) % R, acc)
+            chunks.append(acc.data)
+        return FrVec(torch.cat(chunks))
+
+    # -- MSM (host) ----------------------------------------------------------
+
+    def msm_context_from_crs(self, crs, size: int, key=None) -> HostMSMContext:
+        """Host MSM context over the first `size` SRS points: a CrsHandle is
+        read with numpy (no per-point python ints), a Crs packed from its
+        points."""
+        if key is not None and key in self._msm_cache:
+            ctx = self._msm_cache[key]
+            if ctx.n >= size:
+                return ctx
+        if hasattr(crs, "g1_limbs"):
+            ctx = HostMSMContext.from_limbs(*crs.g1_limbs(size))
+        else:
+            ctx = HostMSMContext.from_points(crs.g1_bases[:size])
+        if key is not None:
+            self._msm_cache[key] = ctx
+        return ctx
+
+    def commit(self, msm_ctx: HostMSMContext, v: FrVec):
+        """KZG-commit: canonical scalars leave the device as one [m, 32]
+        byte array for the host Pippenger."""
+        raw = fk.mul(FR, v.data.contiguous(), FR.const_raw(1, len(v), self.device))
+        return msm_ctx.msm_rows(to_numpy(raw).view(np.uint8))
+
+    def commit_many(self, msm_ctx: HostMSMContext, vs: Sequence[FrVec]):
+        return [self.commit(msm_ctx, v) for v in vs]
+
+    # -- elementwise ---------------------------------------------------------
+
+    def sub(self, a: FrVec, b: FrVec) -> FrVec:
+        return FrVec(fk.sub(FR, a.data, b.data))
+
+    def scale(self, a: FrVec, k: int) -> FrVec:
+        return FrVec(self._scale(a.data, k))
+
+    def scale_add(self, a: FrVec, k: int, c: FrVec) -> FrVec:
+        """a * k + c."""
+        return FrVec(self._add(self._scale(a.data, k), c.data))
+
+    # -- composite rounds ----------------------------------------------------
+
+    def gate_residual(self, sel_v, wires_v, pi_vec) -> FrVec:
+        """q_a*a + q_b*b + q_c*c + q_d*d + q_m*a*b + q_const + q_dnext*rot(d)
+        + PI, as backend_jax._gate_residual_jit."""
+        mul, add = self._mul, self._add
+        q = [s.data for s in sel_v]
+        w = [x.data for x in wires_v]
+        acc = add(mul(q[0], w[0]), mul(q[1], w[1]))
+        acc = add(acc, mul(q[2], w[2]))
+        acc = add(acc, mul(q[3], w[3]))
+        acc = add(acc, mul(q[4], mul(w[0], w[1])))
+        acc = add(acc, q[5])
+        acc = add(acc, mul(q[6], torch.roll(w[3], -1, dims=0)))
+        return FrVec(add(acc, pi_vec.data))
+
+    def any_nonzero(self, v: FrVec) -> bool:
+        return bool(torch.any(v.data != 0))
+
+    def quotient_column(self, sel_l, wires_l, d_next_l, z_l, z_next_l,
+                        pi_l, x_coset, sigma_l, l0_l, vanishing_inv,
+                        beta: int, gamma: int, alpha: int, k_cols) -> FrVec:
+        """Round 3's coset-domain pipeline, as
+        backend_jax._quotient_column_jit: t = (gate + alpha*perm +
+        alpha^2*(z-1)*L0) * Z_H^-1 over the LDE domain."""
+        mul, add = self._mul, self._add
+        n = len(z_l)
+
+        def bc(k):
+            return self._const(k, n)
+        sel = [s.data for s in sel_l]
+        wires = [w.data for w in wires_l]
+        gate = mul(sel[0], wires[0])
+        gate = add(gate, mul(sel[1], wires[1]))
+        gate = add(gate, mul(sel[2], wires[2]))
+        gate = add(gate, mul(sel[3], wires[3]))
+        gate = add(gate, mul(sel[4], mul(wires[0], wires[1])))
+        gate = add(gate, sel[5])
+        gate = add(gate, mul(sel[6], d_next_l.data))
+        gate = add(gate, pi_l.data)
+
+        gamma_v, beta_v = bc(gamma), bc(beta)
+        perm_num = z_l.data
+        perm_den = z_next_l.data
+        for j, k in enumerate(k_cols):
+            t_n = add(add(mul(x_coset.data, bc(k * beta)), wires[j]), gamma_v)
+            t_d = add(add(mul(sigma_l[j].data, beta_v), wires[j]), gamma_v)
+            perm_num = mul(perm_num, t_n)
+            perm_den = mul(perm_den, t_d)
+        perm = fk.sub(FR, perm_num, perm_den)
+
+        numerator = add(gate, mul(perm, bc(alpha)))
+        z_minus_1_l0 = mul(add(z_l.data, bc(R - 1)), l0_l.data)
+        numerator = add(numerator, mul(z_minus_1_l0, bc(alpha * alpha)))
+        return FrVec(mul(numerator, vanishing_inv.data))
+
+    def permutation_grand_product(self, omega_pows, sigma_v, wires_v,
+                                  beta: int, gamma: int, k_cols) -> FrVec:
+        """Round 2: z = grand_product(prod_j (k_j*beta*X + w_j + gamma) /
+        prod_j (beta*sigma_j + w_j + gamma)), as
+        backend_jax._perm_grand_product_jit."""
+        mul, add = self._mul, self._add
+        n = len(wires_v[0])
+        gamma_v, beta_v = self._const(gamma, n), self._const(beta, n)
+        num = den = None
+        for j, k in enumerate(k_cols):
+            w = wires_v[j].data
+            t_n = add(add(mul(omega_pows.data, self._const(k * beta, n)), w), gamma_v)
+            t_d = add(add(mul(sigma_v[j].data, beta_v), w), gamma_v)
+            num = t_n if num is None else mul(num, t_n)
+            den = t_d if den is None else mul(den, t_d)
+        ratio = mul(num, self._batch_inverse(den))
+        return FrVec(self._prefix_products(self._shift_in_one(ratio)))
+
+    def batch_inverse(self, v: FrVec) -> FrVec:
+        return FrVec(self._batch_inverse(v.data))
+
+    def powers(self, base: int, n: int) -> FrVec:
+        return FrVec(gntt.powers(base % R, n, self.device))
+
+    def perm_from_labels(self, label_idx) -> List[FrVec]:
+        """Sigma value vectors from the [4, size] label-index array (label
+        c*size + r == K_COLS[c] * omega^r): one powers table, four scalings
+        and four gathers."""
+        from .plonk.setup import K_COLS
+        size = int(label_idx.shape[1])
+        pows = gntt.powers(get_domain_omega(size), size, self.device)
+        table = torch.cat([self._scale(pows, k) for k in K_COLS])
+        idx = torch.from_numpy(np.ascontiguousarray(label_idx, dtype=np.int64)).to(self.device)
+        return [FrVec(table.index_select(0, row)) for row in idx]
+
+    def poly_eval(self, coeffs: FrVec, x: int) -> int:
+        return self.poly_eval_many([coeffs], x)[0]
+
+    def poly_eval_many(self, polys: Sequence[FrVec], x: int) -> List[int]:
+        """All polynomials (same length) at one point: one powers table,
+        one K1 product per polynomial, then carry-deferred limb sums: the
+        Montgomery products are summed limb by limb as plain integers in
+        int64 (n * 2^32 < 2^63 for n < 2^31) and reduced mod p once on the
+        host, as backend_jax._eval_many_jit does in u32 halves."""
+        n = len(polys[0])
+        if any(len(p) != n for p in polys):
+            raise ValueError("poly_eval_many: polynomials of unequal length")
+        pows = gntt.powers(x % R, n, self.device)
+        sums = torch.stack([
+            (self._mul(p.data.contiguous(), pows).to(torch.int64) & 0xFFFFFFFF).sum(dim=0)
+            for p in polys]).cpu().tolist()
+        inv_r = pow(1 << 256, -1, R)
+        return [sum(int(s) << (32 * i) for i, s in enumerate(row)) % R * inv_r % R
+                for row in sums]
+
+    def divide_by_linear(self, coeffs: FrVec, point: int) -> FrVec:
+        """Quotient of p(X) / (X - point), remainder dropped:
+        q_k = z^-(k+1) * S_{k+1} where S_k = suffix sum of c_j z^j."""
+        n = len(coeffs)
+        z_pows = gntt.powers(point % R, n, self.device)
+        suffix = self._suffix_sums(self._mul(coeffs.data.contiguous(), z_pows))
+        s_next = torch.cat([suffix[1:], torch.zeros_like(suffix[:1])])
+        zinv = fr_inv(point % R)
+        zi_shift = self._scale(gntt.powers(zinv, n, self.device), zinv)  # z^-(k+1)
+        return FrVec(self._mul(s_next, zi_shift)[:n - 1])
+
+    # -- structural ----------------------------------------------------------
+
+    def slice(self, v: FrVec, start: int, stop: int) -> FrVec:
+        return FrVec(v.data[start:stop])
+
+    def rotate(self, v: FrVec, k: int) -> FrVec:
+        return FrVec(torch.roll(v.data, -k, dims=0))
+
+    def tile_small(self, values: Sequence[int], total: int) -> FrVec:
+        base = to_tensor(FR.to_mont_np([v % R for v in values]), self.device)
+        reps = -(-total // base.shape[0])
+        return FrVec(base.repeat(reps, 1)[:total])
