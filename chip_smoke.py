@@ -8,27 +8,42 @@ Phases, each printing a JSON line with its wall seconds:
 1. build: the CUDA kernels (csrc/*.cu, one nvcc per source, all at once) and
    the native host library (native/bn254.cpp), then the card's name and
    power limit as nvidia-smi reports them;
-2. kernels: K1 mul, K2a add, K2b sub and K3 butterfly_dif at 2^20 elements
-   on the card against their plain PyTorch versions on the same inputs
-   (random Montgomery-form Fr values from a fixed numpy seed, with 0, 1,
-   p-1 and p-2 planted; K3 with a real stage's twiddles).  Integer
-   arithmetic: the results must be equal bit for bit;
-3. cross-check: a 2^10-domain synthetic prove on the card gives vk.bin and
-   proof.bin bytes identical to the same prove on the CPU (plain versions);
-4. main path at a 2^20 domain: the synthetic multiplication chain,
-   SetupForProver, make_verification_key, prove, verify, through the
-   entry points a user calls, with the launch count of every kernel read
-   from that run alone.  The proof must verify and a tampered copy must
-   not.  Commitments run in the native host Pippenger ("msm":
-   "host-native"); the MSM kernels are the next slice.  A second prove on
-   the same setup runs under torch.profiler: device time by kernel, and
-   the device's busy time and idle share over that prove's wall time.
+2. srs: the tau = 42 dev SRS of 2^20 points (serial python), written as a
+   key file; its first two points must be G and 42 G;
+3. kernels: every kernel on the card against its plain PyTorch version on
+   the card, on the same inputs, equal bit for bit (integer arithmetic):
+   K1 mul, K2a add, K2b sub, K3 butterfly_dif at 2^20 elements (random
+   Montgomery Fr values from a fixed numpy seed, with 0, 1, p-1 and p-2
+   planted; K3 with a real stage's twiddles); K6 bucket_sweep on the
+   segments of one MSM of 2^20 random scalars over the SRS bases (the main
+   path's shape) and on the sorted window-0 entries of 2^16 of them, both
+   with a planted bucket of more than four segments; K7 padd at 2^20 lanes with
+   planted P + P, P + (-P), P + inf, inf + Q and inf + inf lanes; K8
+   combine on 22 random Jacobian window totals (c = 12);
+4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
+   against the native host Pippenger (backend.HostMSMContext) on four
+   scalar vectors (uniform, 0/1, one constant, a single non-zero): the
+   affine points must be equal;
+5. cross-check: a 2^10-domain synthetic prove on the card, its commitments
+   on the card through K6-K8 (launch counts read from that prove), gives
+   vk.bin and proof.bin bytes identical to the same prove on the CPU (plain
+   versions, commitments in the host Pippenger);
+6. main path at a 2^20 domain: the synthetic multiplication chain,
+   SetupForProver, make_verification_key, prove, verify, through the entry
+   points a user calls, commitments on the card ("msm": "device"), with the
+   launch count of every kernel read from that run alone.  The proof must
+   verify and a tampered copy must not.  The same setup then makes vk.bin
+   and proof.bin again with every commitment in the host Pippenger (a
+   TorchBackend subclass defined here): the bytes must be identical.  A
+   last prove on the device setup runs under torch.profiler: device time by
+   kernel, and the device's busy time and idle share over its wall time.
 
 Then the kernels line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and no result line is printed.  Without a CUDA device it stops at once.
 """
 
+import copy
 import io
 import json
 import os
@@ -41,9 +56,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 SEED = 20240917
-KERNEL_LOG2 = 20        # phase 2 width
-CROSS_LOG2 = 10         # phase 3 domain
-MAIN_LOG2 = 20          # phase 4 domain
+KERNEL_LOG2 = 20        # width of K1-K3 and K7
+SWEEP_LOG2 = 16         # scalars of the K6 one-window check
+CROSS_LOG2 = 10         # phase 5 domain
+MAIN_LOG2 = 20          # phase 6 domain and SRS size
+DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
 # and 32-bit integer multiplies: 64 lanes per SM per clock on sm_90, half
@@ -52,24 +69,20 @@ MAIN_LOG2 = 20          # phase 4 domain
 HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 67e12 / 4
 
-# per element (per butterfly for K3): bytes moved, each input read once and
-# each output written once, and 32-bit multiply instructions (the
-# Montgomery product: 64 + 64 wide products of 2 instructions each, plus 8
-# for m = t0 * n0)
+# 32-bit multiply instructions of one Montgomery product: 64 + 64 wide
+# products of 2 instructions each, plus 8 for m = t0 * n0
 MONT_MUL_OPS = 2 * (64 + 64) + 8
-KERNELS = {
-    "K1 mul": dict(source="plonkit_tpu_torch/csrc/field.cu",
-                   replaces="plonkit_tpu/tpu/pallas_kernels.py:149",
-                   bytes=3 * 32, ops=MONT_MUL_OPS),
-    "K2a add": dict(source="plonkit_tpu_torch/csrc/field.cu",
-                    replaces="plonkit_tpu/tpu/pallas_kernels.py:153",
-                    bytes=3 * 32, ops=0),
-    "K2b sub": dict(source="plonkit_tpu_torch/csrc/field.cu",
-                    replaces="plonkit_tpu/tpu/pallas_kernels.py:157",
-                    bytes=3 * 32, ops=0),
-    "K3 butterfly_dif": dict(source="plonkit_tpu_torch/csrc/ntt.cu",
-                             replaces="plonkit_tpu/tpu/pallas_kernels.py:169",
-                             bytes=5 * 32, ops=MONT_MUL_OPS),
+POINT_BYTES = 3 * 32                       # a Jacobian point, [3, 8] words
+MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # products of madd, add, double
+SOURCES = {
+    "K1 mul": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:149"),
+    "K2a add": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:153"),
+    "K2b sub": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:157"),
+    "K3 butterfly_dif": ("plonkit_tpu_torch/csrc/ntt.cu",
+                         "plonkit_tpu/tpu/pallas_kernels.py:169"),
+    "K6 bucket_sweep": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:166"),
+    "K7 padd": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:213"),
+    "K8 combine": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:271"),
 }
 
 
@@ -110,7 +123,8 @@ def phase_build() -> None:
         log = kern.result()
         host.result()
     for name, rec in log.items():
-        regs = [ln.strip() for ln in rec["ptxas"].splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in rec["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln]
         emit({"build": name, "nvcc_s": round(rec["seconds"], 3), "ptxas": regs})
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": [os.path.basename(build.library_path(n)) for n in build.SOURCES],
@@ -118,71 +132,231 @@ def phase_build() -> None:
     print(card_line(), flush=True)
 
 
-def _random_fr_rows(rng, n: int, planted_at: int) -> np.ndarray:
+def phase_srs(tmp: str) -> str:
+    from plonkit_tpu_torch.api import gen_key_monomial_form
+    from plonkit_tpu_torch.curve import G1_GEN, g1_mul
+    from plonkit_tpu_torch.gpu.mont import FQ
+    from plonkit_tpu_torch.serialization import load_crs_g1_limbs
+    t0 = time.perf_counter()
+    key = os.path.join(tmp, f"srs_2pow{MAIN_LOG2}.key")
+    gen_key_monomial_form(MAIN_LOG2).save(key)
+    x, y, inf = load_crs_g1_limbs(key, 2)
+    pts = [None if inf[i] else (FQ.from_limbs_np(x[i:i + 1])[0], FQ.from_limbs_np(y[i:i + 1])[0])
+           for i in range(2)]
+    if pts != [G1_GEN, g1_mul(G1_GEN, 42)]:
+        raise AssertionError("SRS points 0 and 1 are not G and 42*G")
+    emit({"phase": "srs", "points": 1 << MAIN_LOG2, "seconds": round(time.perf_counter() - t0, 3)})
+    return key
+
+
+def _random_fr_rows(rng, n: int, planted_at: int = None) -> np.ndarray:
     """[n, 8] uint32 rows of random values below p (top limb below p's),
-    with 0, 1, p-1, p-2 planted from row `planted_at`."""
+    with 0, 1, p-1, p-2 planted from row `planted_at` if it is given."""
     from plonkit_tpu_torch.gpu.mont import FR
     rows = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
     rows[:, 7] %= np.uint32(FR.p32[7])
-    rows[planted_at:planted_at + 4] = FR.to_limbs_np([0, 1, FR.p - 1, FR.p - 2])
+    if planted_at is not None:
+        rows[planted_at:planted_at + 4] = FR.to_limbs_np([0, 1, FR.p - 1, FR.p - 2])
     return rows
 
 
-def phase_kernels() -> list:
+def _timed_once(fn):
+    """fn() and its device time in ms (CUDA events around one call)."""
     import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=True, **extra):
+    """Run kernel and plain version, compare them, time both (the kernel
+    over `reps` launches after a warm-up, the plain version on the call
+    compared, after a warm-up call unless warm_plain is False), and reckon
+    the bound from this input's bytes and 32-bit multiplies."""
+    import torch
+    got = kern()
+    if warm_plain:
+        plain()
+    want, plain_ms = _timed_once(plain)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    mism = sum(int((g != w).any(dim=1).sum()) for g, w in zip(got, want))
+    err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
+                  .abs().max()) for g, w in zip(got, want))
+    bytes_s = bytes_moved / HBM_BYTES_PER_S
+    ops_s = int32_muls / INT32_MUL_PER_S
+    source, replaces = SOURCES[name]
+    return dict({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "elements": count, "mismatches": mism, "max_abs_err": err,
+        "ms": time_ms(kern, reps), "plain_ms": plain_ms,
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "bound_bytes": bytes_moved, "bound_int32_muls": int32_muls,
+        "bound_basis": "max(bytes / 3.35e12 B/s, int32 multiplies / 16.75e12 per s)",
+        "library_ms": None,
+    }, **extra)
+
+
+def _field_rows() -> list:
     from plonkit_tpu_torch.fields import get_domain_omega
     from plonkit_tpu_torch.gpu import field_kernels as fk, mont, ntt
     from plonkit_tpu_torch.gpu.mont import FR, to_tensor
-    t0 = time.perf_counter()
     n = 1 << KERNEL_LOG2
     rng = np.random.default_rng(SEED)
-    a = to_tensor(_random_fr_rows(rng, n, 0), "cuda")
-    b = to_tensor(_random_fr_rows(rng, n, n - 4), "cuda")
+    a = to_tensor(_random_fr_rows(rng, n, 0), DEVICE)
+    b = to_tensor(_random_fr_rows(rng, n, n - 4), DEVICE)
     # K3 on one stage of a 2^20-point NTT: lo/hi halves and the stage-1
     # twiddles w^(2 * (j >> 1))
     half = n // 2
-    omega_pows = ntt.powers(get_domain_omega(n), half, "cuda")
+    omega_pows = ntt.powers(get_domain_omega(n), half, DEVICE)
     tw = omega_pows[::2][:half >> 1].repeat_interleave(2, dim=0)
     lo, hi = a[:half], a[half:]
 
     def plain_bfly():
         return mont.add(FR, lo, hi), mont.mont_mul(FR, tw, mont.sub(FR, lo, hi))
 
-    cases = {
-        "K1 mul": (lambda: fk.mul(FR, a, b), lambda: mont.mont_mul(FR, a, b), n),
-        "K2a add": (lambda: fk.add(FR, a, b), lambda: mont.add(FR, a, b), n),
-        "K2b sub": (lambda: fk.sub(FR, a, b), lambda: mont.sub(FR, a, b), n),
-        "K3 butterfly_dif": (lambda: ntt.butterfly_dif(lo, hi, tw), plain_bfly, half),
-    }
-    rows = []
-    for name, (kern, plain, count) in cases.items():
-        got, want = kern(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        torch.cuda.synchronize()
-        mism = sum(int((g != w).any(dim=1).sum()) for g, w in zip(got, want))
-        err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
-                      .abs().max()) for g, w in zip(got, want))
-        spec = KERNELS[name]
-        bytes_s = spec["bytes"] * count / HBM_BYTES_PER_S
-        ops_s = spec["ops"] * count / INT32_MUL_PER_S
-        rows.append({
-            "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "elements": count,
-            "mismatches": mism, "max_abs_err": err,
-            "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 3),
-            "bound_ms": max(bytes_s, ops_s) * 1e3,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bound_bytes": spec["bytes"] * count, "bound_int32_muls": spec["ops"] * count,
-            "bound_basis": "max(bytes / 3.35e12 B/s, int32 multiplies / 16.75e12 per s)",
-            "library_ms": None,
-        })
+    return [
+        _row("K1 mul", lambda: fk.mul(FR, a, b), lambda: mont.mont_mul(FR, a, b), n,
+             3 * 32 * n, MONT_MUL_OPS * n, 20),
+        _row("K2a add", lambda: fk.add(FR, a, b), lambda: mont.add(FR, a, b), n,
+             3 * 32 * n, 0, 20),
+        _row("K2b sub", lambda: fk.sub(FR, a, b), lambda: mont.sub(FR, a, b), n,
+             3 * 32 * n, 0, 20),
+        _row("K3 butterfly_dif", lambda: ntt.butterfly_dif(lo, hi, tw), plain_bfly, half,
+             5 * 32 * half, MONT_MUL_OPS * half, 20),
+    ]
+
+
+def _segments_of(ctx, rows: np.ndarray, window0: bool = False):
+    """The segment table the MSM builds for these scalar rows (all windows,
+    or window 0 alone), and its entry and segment counts."""
+    from plonkit_tpu_torch.gpu.mont import to_tensor
+    keys = ctx._sorted_keys(to_tensor(rows, DEVICE))
+    if window0:
+        keys = keys[(keys >> ctx.idx_bits) < (1 << ctx.c)].contiguous()
+    idx, seg_start, seg_len, seg_bucket = ctx._segments(keys, rows.shape[0])
+    return (idx, seg_start, seg_len, seg_bucket,
+            int(seg_len.sum()), int((seg_len > 0).sum()))
+
+
+def _msm_rows(ctx) -> list:
+    """K6, K7, K8 on the card against their plain versions on the card."""
+    import torch
+    from plonkit_tpu_torch.gpu import ec, msm_kernels as mk
+    from plonkit_tpu_torch.gpu.mont import FR
+    rng = np.random.default_rng(SEED + 1)
+    # K6 at the main path's shape: the segments of one MSM of 2^20 uniform
+    # scalars (all 22 windows), with a planted bucket (window 0, digit 7)
+    rows = _random_fr_rows(rng, ctx.n, 0)
+    hot = 7 * 32
+    rows[4:4 + hot] = FR.to_limbs_np([7])
+    idx, seg_start, seg_len, seg_bucket, entries, segs = _segments_of(ctx, rows)
+    hot_segs = int((seg_bucket == 7).sum())
+    if hot_segs <= 4:
+        raise AssertionError(f"planted bucket has {hot_segs} segments")
+    # and on the sorted window-0 entries of the first 2^16 scalars
+    w0 = _segments_of(ctx, rows[:1 << SWEEP_LOG2], window0=True)
+    w0_got = mk.bucket_sweep(ctx.table, *w0[:3])
+    w0_want = mk.bucket_sweep_plain(ctx.table, *w0[:3])
+    w0_mism = sum(int((g != w).any(dim=1).sum()) for g, w in zip(w0_got, w0_want))
+    w0_hot = int((w0[3] == 7).sum())
+    if w0_hot <= 4:
+        raise AssertionError(f"planted bucket has {w0_hot} segments in the 2^16 window")
+    k6 = _row("K6 bucket_sweep", lambda: mk.bucket_sweep(ctx.table, idx, seg_start, seg_len),
+              lambda: mk.bucket_sweep_plain(ctx.table, idx, seg_start, seg_len), entries,
+              entries * (64 + 4) + seg_start.shape[0] * (16 + POINT_BYTES),
+              (entries - segs) * MADD_MULS * MONT_MUL_OPS, 20, warm_plain=False,
+              segments=segs, planted_bucket_segments=hot_segs,
+              window0_2pow16={"entries": w0[4], "segments": w0[5],
+                              "planted_bucket_segments": w0_hot, "mismatches": w0_mism})
+    k6["mismatches"] += w0_mism
+
+    # K7: 2^20 lanes of Jacobian points with Z != 1 (p = P + Q of SRS
+    # bases), partners rolled, then the planted lanes
+    n = 1 << KERNEL_LOG2
+    base = ec.jacobian_from_affine((ctx.table[:n, :8].contiguous(),
+                                    ctx.table[:n, 8:].contiguous(),
+                                    torch.zeros(n, dtype=torch.bool, device=DEVICE)))
+    p = mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base))
+    q = tuple(a.roll(7, 0).contiguous() for a in p)
+    neg = ec.neg(p)
+    q[0][:10], q[1][:10], q[2][:10] = p[0][:10], p[1][:10], p[2][:10]           # P + P
+    q[0][10:20], q[1][10:20], q[2][10:20] = neg[0][10:20], neg[1][10:20], neg[2][10:20]
+    for a in q:
+        a[20:30] = 0                                                            # P + inf
+    for a in p:
+        a[30:50] = 0                                                            # inf + Q
+    for a in q:
+        a[40:50] = 0                                                            # inf + inf
+    # products: 16 on a generic lane, 8 + 7 on P + P (8 before H, then
+    # the doubling), 8 on P + (-P), none where an operand is infinity
+    k7 = _row("K7 padd", lambda: mk.padd(p, q), lambda: mk.padd_plain(p, q), n,
+              n * 3 * POINT_BYTES,
+              ((n - 50) * ADD_MULS + 10 * (8 + DBL_MULS) + 10 * 8) * MONT_MUL_OPS, 20,
+              warm_plain=False)
+
+    # K8: 22 random window totals, c = 12
+    w = tuple(a[n // 2:n // 2 + ctx.num_windows].contiguous() for a in p)
+    doublings = ctx.c * (ctx.num_windows - 1)
+    k8 = _row("K8 combine", lambda: mk.combine(w, ctx.c), lambda: mk.combine_plain(w, ctx.c),
+              ctx.num_windows, (ctx.num_windows + 1) * POINT_BYTES,
+              (doublings * DBL_MULS + (ctx.num_windows - 1) * ADD_MULS) * MONT_MUL_OPS, 20,
+              warm_plain=False, note="one thread, ~250 dependent point operations: bound by latency, "
+                   "not by the bytes or operations counted here")
+    return [k6, k7, k8]
+
+
+def phase_kernels(ctx) -> list:
+    t0 = time.perf_counter()
+    rows = _field_rows() + _msm_rows(ctx)
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
           "mismatches": {r["name"]: r["mismatches"] for r in rows}})
     bad = [r["name"] for r in rows if r["mismatches"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return rows
+
+
+def phase_msm(ctx, host_ctx) -> None:
+    """The device MSM against the native host Pippenger at 2^20."""
+    import torch
+    from plonkit_tpu_torch.gpu import field_kernels as fk
+    from plonkit_tpu_torch.gpu.mont import FR, to_tensor
+    t0 = time.perf_counter()
+    n = ctx.n
+    rng = np.random.default_rng(SEED + 2)
+    vectors = {
+        "uniform": _random_fr_rows(rng, n, n // 2),
+        "zero_one": FR.to_limbs_np([0, 1])[rng.integers(0, 2, n)],
+        "constant": np.repeat(_random_fr_rows(rng, 1), n, axis=0),
+        "single": np.zeros((n, 8), dtype=np.uint32),
+    }
+    vectors["single"][n // 3] = _random_fr_rows(rng, 1)[0]
+    out = {}
+    for name, rows in vectors.items():
+        rows = np.ascontiguousarray(rows)
+        raw = to_tensor(rows, DEVICE)
+        v = fk.mul(FR, raw, FR.const_raw(FR.r2_mod_p, n, DEVICE))     # Montgomery form
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = ctx.msm_vec(v)
+        card_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        want = host_ctx.msm_rows(rows.view(np.uint8))
+        host_ms = (time.perf_counter() - t) * 1e3
+        out[name] = {"equal": got == want, "card_ms": card_ms, "host_ms": host_ms}
+    emit({"phase": "msm", "points": n, "c": ctx.c, "windows": ctx.num_windows,
+          "vectors": out, "seconds": round(time.perf_counter() - t0, 3)})
+    bad = [k for k, v in out.items() if not v["equal"]]
+    if bad:
+        raise AssertionError(f"device MSM differs from the native one: {bad}")
 
 
 def _prove_bytes(circuit, key_path: str, device: str):
@@ -202,24 +376,47 @@ def phase_cross_check(tmp: str) -> None:
     t0 = time.perf_counter()
     key = os.path.join(tmp, f"srs_2pow{CROSS_LOG2}.key")
     gen_key_monomial_form(CROSS_LOG2).save(key)
+    from plonkit_tpu_torch.gpu import msm_kernels as mk
     circuit = synth_circuit(CROSS_LOG2 - 1)
-    vk_gpu, proof_gpu = _prove_bytes(circuit, key, "cuda")
+    _reset_launches()
+    vk_gpu, proof_gpu = _prove_bytes(circuit, key, DEVICE)
+    msm_launches = dict(mk.launches)
     vk_cpu, proof_cpu = _prove_bytes(circuit, key, "cpu")
     same = {"vk.bin": vk_gpu == vk_cpu, "proof.bin": proof_gpu == proof_cpu}
     emit({"phase": "cross_check", "domain": 1 << CROSS_LOG2, "identical": same,
-          "seconds": round(time.perf_counter() - t0, 3)})
+          "card_msm_launches": msm_launches, "seconds": round(time.perf_counter() - t0, 3)})
     if not all(same.values()):
         raise AssertionError("cuda and cpu proves differ at 2^10")
+    if not all(msm_launches.values()):
+        raise AssertionError(f"2^10 commitments on the card missed an MSM kernel: {msm_launches}")
 
 
-def phase_main(tmp: str) -> dict:
+def _host_commit_backend():
+    """A TorchBackend whose commitments all take the host Pippenger: the
+    configuration of the port's first slice, for the byte comparison."""
+    from plonkit_tpu_torch.backend import HostMSMContext
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+
+    class HostCommitBackend(TorchBackend):
+        def msm_context_from_crs(self, crs, size, key=None):
+            return HostMSMContext.from_limbs(*crs.g1_limbs(size))
+
+    return HostCommitBackend(DEVICE)
+
+
+def _reset_launches() -> None:
+    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt
+    for counts in (fk.launches, ntt.launches, mk.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def phase_main(key: str) -> dict:
     from plonkit_tpu_torch import profiling
-    from plonkit_tpu_torch.api import SetupForProver, gen_key_monomial_form, verify
-    from plonkit_tpu_torch.curve import G1_GEN, g1_mul
+    from plonkit_tpu_torch.api import SetupForProver, verify
     from plonkit_tpu_torch.frontend.synthetic import synth_circuit
-    from plonkit_tpu_torch.gpu import field_kernels as fk, ntt
-    from plonkit_tpu_torch.gpu.mont import FQ
-    from plonkit_tpu_torch.serialization import CrsHandle, Proof, load_crs_g1_limbs
+    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt
+    from plonkit_tpu_torch.serialization import CrsHandle, Proof
     t_all = time.perf_counter()
     times = {}
 
@@ -227,23 +424,10 @@ def phase_main(tmp: str) -> dict:
     circuit = synth_circuit(MAIN_LOG2 - 1)
     times["circuit"] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    key = os.path.join(tmp, f"srs_2pow{MAIN_LOG2}.key")
-    gen_key_monomial_form(MAIN_LOG2).save(key)
-    x, y, inf = load_crs_g1_limbs(key, 2)
-    pts = [None if inf[i] else (FQ.from_limbs_np(x[i:i + 1])[0], FQ.from_limbs_np(y[i:i + 1])[0])
-           for i in range(2)]
-    if pts != [G1_GEN, g1_mul(G1_GEN, 42)]:
-        raise AssertionError("SRS points 0 and 1 are not G and 42*G")
-    times["srs"] = time.perf_counter() - t0
-
-    for counts in (fk.launches, ntt.launches):
-        for k in counts:
-            counts[k] = 0
+    _reset_launches()
     profiling.reset()
-
     t0 = time.perf_counter()
-    setup = SetupForProver(circuit, CrsHandle(key))
+    setup = SetupForProver(circuit, CrsHandle(key), device=DEVICE)
     times["setup"] = time.perf_counter() - t0
     domain = setup.setup_polynomials.domain_size
     if domain != 1 << MAIN_LOG2:
@@ -251,13 +435,16 @@ def phase_main(tmp: str) -> dict:
     t0 = time.perf_counter()
     vk = setup.make_verification_key()
     times["vk"] = time.perf_counter() - t0
-    msm_vk = profiling.last_timings.get("host msm", 0.0)
+    msm_vk = profiling.last_timings.get("msm", 0.0)
     t0 = time.perf_counter()
     proof = setup.prove(circuit)
     times["prove"] = time.perf_counter() - t0
     launches = {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
-                "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"]}
+                "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
+                "K6 bucket_sweep": mk.launches["bucket_sweep"], "K7 padd": mk.launches["padd"],
+                "K8 combine": mk.launches["combine"]}
     stages = dict(profiling.last_timings)
+    host_msm = stages.get("host msm", 0.0)
 
     t0 = time.perf_counter()
     ok = verify(vk, proof)
@@ -265,19 +452,31 @@ def phase_main(tmp: str) -> dict:
     tampered.wire_values_at_z[0] = (tampered.wire_values_at_z[0] + 1) % (1 << 253)
     rejected = not verify(vk, tampered)
     times["verify"] = time.perf_counter() - t0
-    vk.save(os.path.join(tmp, "vk.bin"))
-    proof.save(os.path.join(tmp, "proof.bin"))
 
-    emit({"phase": "main", "domain": domain, "msm": "host-native",
+    # the same setup, every commitment in the host Pippenger
+    t0 = time.perf_counter()
+    ref = copy.copy(setup)
+    ref.backend, ref._prover_ctx = _host_commit_backend(), None
+    same = {"vk.bin": ref.make_verification_key().to_bytes() == vk.to_bytes(),
+            "proof.bin": ref.prove(circuit).to_bytes() == proof.to_bytes()}
+    times["host_commit_reference"] = time.perf_counter() - t0
+
+    emit({"phase": "main", "domain": domain, "msm": "device",
           "verified": ok, "tampered_rejected": rejected,
+          "identical_to_host_commitments": same,
           "seconds": {k: round(v, 3) for k, v in times.items()},
           "stages_s": {k: round(v, 3) for k, v in stages.items()},
-          "host_msm_s": {"vk": round(msm_vk, 3),
-                         "prove": round(stages.get("host msm", 0.0) - msm_vk, 3)},
+          "msm_s": {"vk": round(msm_vk, 3),
+                    "prove": round(stages.get("msm", 0.0) - msm_vk, 3)},
+          "host_msm_s": round(host_msm, 3),
           "launches": launches,
           "total_s": round(time.perf_counter() - t_all, 3)})
     if not ok or not rejected:
         raise AssertionError(f"verify: proof {ok}, tampered rejected {rejected}")
+    if not all(same.values()):
+        raise AssertionError(f"device and host commitments give other bytes: {same}")
+    if host_msm:
+        raise AssertionError("a commitment of the main path ran on the host")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
@@ -325,10 +524,10 @@ def profile_prove(setup, circuit, vk) -> None:
         rec[0] += 1
         rec[1] += e.time_range.end - e.time_range.start
     busy = merged_busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
     emit({"phase": "profile", "prove_wall_s": wall, "device_events": len(kernels),
           "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
-          "host_msm_s": profiling.last_timings.get("host msm", 0.0),
+          "msm_s": profiling.last_timings.get("msm", 0.0),
           "stages_s": {k: round(v, 3) for k, v in profiling.last_timings.items()},
           "by_kernel": [{"name": n[:80], "count": c, "ms": t / 1e3} for n, (c, t) in top]})
 
@@ -340,12 +539,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import plonkit_tpu_torch  # noqa: F401  (fails outside the repository)
+    from plonkit_tpu_torch.backend import HostMSMContext
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+    from plonkit_tpu_torch.serialization import CrsHandle
     t0 = time.perf_counter()
     phase_build()
-    rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="plonkit_smoke_") as tmp:
+        key = phase_srs(tmp)
+        handle = CrsHandle(key)
+        ctx = TorchBackend(DEVICE).device_msm_context(handle, 1 << MAIN_LOG2)
+        rows = phase_kernels(ctx)
+        phase_msm(ctx, HostMSMContext.from_limbs(*handle.g1_limbs(1 << MAIN_LOG2)))
+        del ctx
         phase_cross_check(tmp)
-        launches = phase_main(tmp)
+        launches = phase_main(key)
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"kernels": rows})

@@ -6,9 +6,10 @@ against `Backend`; backend_torch.TorchBackend implements it on the card
 handles; scalars cross the boundary as python ints, since they feed the
 byte-exact Fiat-Shamir transcript.
 
-Commitments run on the host in this slice (`HostMSMContext`, over the
-native Pippenger of native/bn254.cpp), the configuration the JAX package
-itself takes for small sizes and on a CPU (backend_jax.py:523, :541).
+`HostMSMContext` commits on the host, over the native Pippenger of
+native/bn254.cpp: TorchBackend takes it on the CPU, as the JAX package does
+(backend_jax.py:541).  On the card every commitment runs through
+gpu/msm.py.
 """
 
 import os

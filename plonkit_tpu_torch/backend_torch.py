@@ -9,7 +9,11 @@ K3): on the card each is one kernel launch, on the CPU the plain version.
 The JAX package's fused programs (_gate_residual_jit, _quotient_column_jit,
 _perm_grand_product_jit, the scans) become the same sequences of K1/K2
 launches that they compose from pk.mul/pk.add; fusing them is later work.
-Commitments run on the host (backend.HostMSMContext).
+Commitments of a backend on the card run on the card at every size
+(gpu/msm.py over the MSM kernels K6-K8); a backend on the CPU commits in
+the host Pippenger (backend.HostMSMContext), as backend_jax does on a CPU.
+backend_jax's switch to the host at or below 4096 points is not taken
+over: no crossover has been measured on the card.
 """
 
 from typing import List, Sequence
@@ -19,8 +23,10 @@ import torch
 
 from .backend import HostMSMContext
 from .fields import FR_GENERATOR, FR_MODULUS as R, fr_inv, get_domain_omega
-from .gpu import field_kernels as fk, ntt as gntt
-from .gpu.mont import FR, NLIMBS, to_numpy, to_tensor
+from .gpu import ec, field_kernels as fk, ntt as gntt
+from .gpu.mont import FQ, FR, NLIMBS, to_numpy, to_tensor
+from .gpu.msm import MSMContext
+from .profiling import stage
 
 # Coset transforms at or above this many elements run as `factor` split
 # n-point transforms (as backend_jax._SPLIT_NTT_MIN): 2^24 = the LDE of a
@@ -187,31 +193,63 @@ class TorchBackend:
             chunks.append(acc.data)
         return FrVec(torch.cat(chunks))
 
-    # -- MSM (host) ----------------------------------------------------------
+    # -- MSM ---------------------------------------------------------------
 
-    def msm_context_from_crs(self, crs, size: int, key=None) -> HostMSMContext:
-        """Host MSM context over the first `size` SRS points: a CrsHandle is
-        read with numpy (no per-point python ints), a Crs packed from its
-        points."""
-        if key is not None and key in self._msm_cache:
-            ctx = self._msm_cache[key]
-            if ctx.n >= size:
-                return ctx
-        if hasattr(crs, "g1_limbs"):
-            ctx = HostMSMContext.from_limbs(*crs.g1_limbs(size))
+    def _cached_msm(self, key, size: int):
+        ctx = self._msm_cache.get(key) if key is not None else None
+        return ctx if ctx is not None and ctx.n >= size else None
+
+    def msm_context_from_crs(self, crs, size: int, key=None):
+        """MSM context over the first `size` SRS points, as
+        backend_jax.msm_context_from_crs: the device MSM on the card at
+        every size, the host Pippenger on the CPU.  On the card a CrsHandle's limb
+        rows are carried over as they are and put in Montgomery form there
+        by K1 over Fq (x R^2 mod q); a Crs goes through ec.affine_from_host.
+        The host context reads a CrsHandle with numpy and packs a Crs from
+        its points."""
+        ctx = self._cached_msm(key, size)
+        if ctx is not None:
+            return ctx
+        if self.device.type == "cpu":
+            if hasattr(crs, "g1_limbs"):
+                ctx = HostMSMContext.from_limbs(*crs.g1_limbs(size))
+            else:
+                ctx = HostMSMContext.from_points(crs.g1_bases[:size])
         else:
-            ctx = HostMSMContext.from_points(crs.g1_bases[:size])
+            ctx = self.device_msm_context(crs, size)
         if key is not None:
             self._msm_cache[key] = ctx
         return ctx
 
-    def commit(self, msm_ctx: HostMSMContext, v: FrVec):
-        """KZG-commit: canonical scalars leave the device as one [m, 32]
-        byte array for the host Pippenger."""
+    def device_msm_context(self, crs, size: int) -> MSMContext:
+        """gpu/msm.MSMContext on this backend's device over the first
+        `size` SRS points (msm_context_from_crs takes it on the card; the
+        CPU tests call it directly)."""
+        if not hasattr(crs, "g1_limbs"):
+            return MSMContext.from_device_affine(
+                *ec.affine_from_host(crs.g1_bases[:size], self.device))
+        x_raw, y_raw, inf = crs.g1_limbs(size)
+        r2 = FQ.const_raw(FQ.r2_mod_p, x_raw.shape[0], self.device)
+        x = fk.mul(FQ, to_tensor(x_raw, self.device), r2)
+        y = fk.mul(FQ, to_tensor(y_raw, self.device), r2)
+        return MSMContext.from_device_affine(x, y, torch.from_numpy(inf).to(self.device))
+
+    def commit(self, msm_ctx, v: FrVec):
+        """KZG-commit.  A device context takes the Montgomery vector where it
+        lies; the host context (a backend on the CPU) takes the canonical
+        scalars as one [m, 32] byte array."""
+        if isinstance(msm_ctx, MSMContext):
+            return msm_ctx.msm_vec(v.data)
         raw = fk.mul(FR, v.data.contiguous(), FR.const_raw(1, len(v), self.device))
         return msm_ctx.msm_rows(to_numpy(raw).view(np.uint8))
 
-    def commit_many(self, msm_ctx: HostMSMContext, vs: Sequence[FrVec]):
+    def commit_many(self, msm_ctx, vs: Sequence[FrVec]):
+        """Several commitments: on a device context every MSM is queued
+        before the first result is read back."""
+        if isinstance(msm_ctx, MSMContext):
+            with stage("msm"):
+                handles = [msm_ctx.msm_vec_begin(v.data) for v in vs]
+                return [msm_ctx.msm_vec_end(h) for h in handles]
         return [self.commit(msm_ctx, v) for v in vs]
 
     # -- elementwise ---------------------------------------------------------

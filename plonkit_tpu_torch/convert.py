@@ -4,9 +4,12 @@ The JAX package holds Fr and Fq vectors as planar [16, N] uint32 arrays of
 16-bit little-endian limbs (plonkit_tpu/tpu/mont.py); the port holds them as
 [N, 8] rows of 32-bit little-endian limbs (gpu/mont.py).  Both use
 R = 2^256, so a repack carries every Montgomery or raw value over
-unchanged.  Nothing here imports the JAX package: the functions take numpy
-arrays, or objects that expose one (`.data` of a backend_jax.FrVec, `.path`
-of a serialization.CrsHandle).
+unchanged.  G1 point batches carry over coordinate by coordinate: the JAX
+package's affine (x, y, inf) and Jacobian (X, Y, Z) triples of [16, N]
+Fq limbs become the port's triples of [N, 8] rows (gpu/ec.py), and back.
+Nothing here imports the JAX package: the functions take numpy arrays, or
+objects that expose one (`.data` of a backend_jax.FrVec, `.path` of a
+serialization.CrsHandle).
 """
 
 import numpy as np
@@ -48,6 +51,32 @@ def frvec_from_port(v: FrVec) -> np.ndarray:
     if not isinstance(data, torch.Tensor):
         raise TypeError("expected a port FrVec or tensor")
     return rows_to_limbs16(to_numpy(data))
+
+
+def jacobian_to_port(p, device="cuda") -> tuple:
+    """JAX-package Jacobian (X, Y, Z), each [16, N] -> port [N, 8] rows."""
+    return tuple(to_tensor(limbs16_to_rows(a), device) for a in p)
+
+
+def jacobian_from_port(p) -> tuple:
+    """Port Jacobian rows -> the JAX package's three [16, N] arrays."""
+    return tuple(rows_to_limbs16(to_numpy(a)) for a in p)
+
+
+def affine_to_port(aff, device="cuda") -> tuple:
+    """JAX-package affine (x [16, N], y [16, N], inf [N]) -> port
+    (x rows, y rows, inf [N] bool tensor)."""
+    x, y, inf = aff
+    mask = torch.from_numpy(np.asarray(inf, dtype=bool).copy())
+    return (to_tensor(limbs16_to_rows(x), device), to_tensor(limbs16_to_rows(y), device),
+            mask.to(device))
+
+
+def affine_from_port(aff) -> tuple:
+    """Port affine (x rows, y rows, inf) -> ([16, N], [16, N], [N] bool)."""
+    x, y, inf = aff
+    return (rows_to_limbs16(to_numpy(x)), rows_to_limbs16(to_numpy(y)),
+            inf.detach().cpu().numpy().astype(bool))
 
 
 def crs_handle(handle) -> CrsHandle:

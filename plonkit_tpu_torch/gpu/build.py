@@ -21,8 +21,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-SOURCES = ("field", "ntt")
-_HEADERS = ("field.cuh",)
+SOURCES = ("field", "ntt", "msm")
+_HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,6 +33,9 @@ _ARGTYPES = {
                            "plonkit_field_sub")},
     "ntt": {"plonkit_butterfly_dif":
             [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]},
+    "msm": {"plonkit_bucket_sweep": [_P] * 7 + [ctypes.c_longlong, _P],
+            "plonkit_padd": [_P] * 9 + [ctypes.c_longlong, _P],
+            "plonkit_combine": [_P] * 3 + [ctypes.c_int, ctypes.c_int] + [_P] * 4},
 }
 
 _libs = {}

@@ -79,7 +79,7 @@ FR = FieldSpec(FR_MODULUS, 0)
 FQ = FieldSpec(FQ_MODULUS, 1)
 
 
-def to_tensor(limbs: np.ndarray, device="cpu") -> torch.Tensor:
+def to_tensor(limbs: np.ndarray, device) -> torch.Tensor:
     """[N, 8] uint32 numpy limbs -> [N, 8] int32 tensor on `device`."""
     arr = np.ascontiguousarray(limbs, dtype=np.uint32).view(np.int32)
     return torch.from_numpy(arr).to(device)

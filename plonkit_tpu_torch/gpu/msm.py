@@ -1,0 +1,255 @@
+"""Pippenger multi-scalar multiplication over BN254 G1 on the card, ported
+from plonkit_tpu/tpu/msm.py (MSMContext).
+
+One MSM over n fixed bases, with unsigned c-bit digits in W = ceil(254 / c)
+windows:
+
+1. the scalars leave Montgomery form by one K1 launch (x raw 1);
+2. digits are taken with torch bit operations (as `_digits_packed`);
+3. one `torch.sort` of int64 keys `(window * 2^c + digit) << idx_bits |
+   index` orders every window's entries by bucket; zero digits (and bases at
+   infinity) get a key above all others and drop out;
+4. a segment table cuts each bucket's run into segments of at most
+   SEGMENT entries (cumulative sums and binary searches: data movement,
+   no host synchronisation);
+5. K6 (bucket_sweep) sums each segment's bases;
+6. K7 (padd) rounds fold a bucket's segment sums into its sum S_k, pairwise
+   by rank within the bucket, and the sums are placed in a [W * 2^c] table;
+7. K7 rounds compute sum_k k * S_k for all windows at once, as
+   `_reduce_weighted`: inclusive suffix sums, column 0 cleared, tree total;
+8. K8 (combine) adds the windows by Horner;
+9. the one Jacobian point comes to the host and is made affine there.
+
+Each step 5-8 is one kernel on a CUDA tensor and its plain version on a CPU
+one (gpu/msm_kernels.py), so the same code runs the CPU tests.
+
+What the reference does for its TPU layout and this port does not take
+over:
+- the u16-packed 64 B rows and the 8-point block transposes
+  (`build_packed_table`, `_phase_a`, `_phase_b_flat`): they serve XLA's
+  row gather and the TPU's (8, 128) tiles; here a thread gathers its rows
+  by index from an [n, 16] table of x || y;
+- the per-lane `r_max` tiers and their overflow retry (`window_configs`):
+  a lane there owns a whole bucket in a padded run, and a skewed bucket
+  overflows it; here a bucket is as many segments as it needs;
+- the host fallback on overflow or on a degenerate flag (`_host_fallback`,
+  `_finish`): segments cannot overflow and every add is complete, so there
+  is no flag to react to and no path by which a commitment leaves the card.
+
+The sort key packs a bucket and an index into one int64; the constructor
+raises unless both fit under the key reserved for dropped entries (the
+reference packs 12 + 20 bits into a u32 and asserts c + 20 <= 32).
+
+Window width: c = clamp(bit_length(n) - 9, 4, 12), so c = 12 (W = 22, the
+reference's choice) at 2^20 points.  A larger c makes fewer mixed adds
+(n * W of them in K6) but 2^c buckets a window to reduce (about
+2 c * W * 2^c lanes of K7); at small n it keeps the reduction and the CPU
+tests cheap.
+"""
+
+import math
+
+import torch
+
+from ..fields import FR_MODULUS
+from ..profiling import stage
+from . import ec, field_kernels as fk
+from . import msm_kernels as mk
+from .mont import FR, NLIMBS, to_tensor
+
+SEGMENT = 32                  # entries per K6 segment at most
+SCALAR_BITS = 254
+_DROPPED = (1 << 63) - 1      # sort key of zero digits: above every bucket
+
+
+def window_bits(n: int) -> int:
+    return max(4, min(12, n.bit_length() - 9))
+
+
+def _shift_down(a: torch.Tensor, d: int) -> torch.Tensor:
+    """out[i] = a[i + d], rows past the end zero."""
+    return torch.cat([a[d:], torch.zeros_like(a[:min(d, a.shape[0])])])
+
+
+def _run_starts(first: torch.Tensor, max_runs: int) -> torch.Tensor:
+    """For every position, the position where its run begins; `first` flags
+    the first element of each run, and there are at most max_runs runs.
+    A cumulative sum numbers the runs and a binary search finds their
+    starts (torch.cummax over the flagged positions does the same, but its
+    CUDA scan took 35 ms at 2.3e7 entries on the H100)."""
+    count = torch.cumsum(first, 0)
+    starts = torch.searchsorted(count, torch.arange(1, max_runs + 1, device=first.device))
+    return starts[(count - 1).clamp(min=0)]
+
+
+def _fold(pts, shift: int, keep: torch.Tensor):
+    """pts[i] += pts[i + shift] where keep[i] (else the partner is infinity):
+    a shifted copy with Z masked, then one K7 launch."""
+    q = tuple(_shift_down(a, shift) for a in pts)
+    q = (q[0], q[1], torch.where(keep[:, None], q[2], torch.zeros_like(q[2])))
+    return mk.padd(pts, q)
+
+
+class MSMContext:
+    """Device-resident bases for repeated MSMs over one SRS."""
+
+    def __init__(self, points, device="cuda", c: int = None):
+        x, y, inf = ec.affine_from_host(list(points), device)
+        self._init(x, y, inf, c)
+
+    @classmethod
+    def from_device_affine(cls, x, y, inf, c: int = None) -> "MSMContext":
+        """From [n, 8] Montgomery Fq coordinate rows and the [n] infinity
+        mask, all on one device."""
+        ctx = cls.__new__(cls)
+        ctx._init(x, y, inf, c)
+        return ctx
+
+    def _init(self, x, y, inf, c):
+        self.n = x.shape[0]
+        self.device = x.device
+        self.c = window_bits(self.n) if c is None else c
+        self.num_windows = -(-SCALAR_BITS // self.c)
+        self.table = torch.cat([x, y], dim=1).contiguous()          # [n, 16]
+        self.inf = inf.to(torch.bool) if bool(inf.any()) else None
+        self.idx_bits = max(1, (self.n - 1).bit_length())
+        buckets = self.num_windows << self.c
+        # the packed key: bucket << idx_bits | index, below _DROPPED
+        if buckets.bit_length() + self.idx_bits > 62:
+            raise ValueError(f"c = {self.c} and {self.n} points do not fit one int64 sort key")
+        # a bucket holds at most n entries, so ceil(n / SEGMENT) segments
+        self.fold_rounds = max(0, math.ceil(math.log2(max(1, -(-self.n // SEGMENT)))))
+
+    # -- steps 2-4: digits, sort, segments --------------------------------
+
+    def _sorted_keys(self, raw: torch.Tensor) -> torch.Tensor:
+        """[m, 8] canonical scalar rows -> [W * m] sorted int64 keys."""
+        m, c = raw.shape[0], self.c
+        limbs = raw.to(torch.int64) & 0xFFFFFFFF
+        digits = []
+        for w in range(self.num_windows):
+            bit0 = w * c
+            limb, off = bit0 >> 5, bit0 & 31
+            v = limbs[:, limb] >> off
+            if off + c > 32 and limb + 1 < NLIMBS:
+                v = v | (limbs[:, limb + 1] << (32 - off))
+            digits.append(v & ((1 << c) - 1))
+        d = torch.stack(digits)                                      # [W, m]
+        win = torch.arange(self.num_windows, device=raw.device, dtype=torch.int64)
+        idx = torch.arange(m, device=raw.device, dtype=torch.int64)
+        keys = (((win[:, None] << c) | d) << self.idx_bits) | idx[None]
+        drop = d == 0
+        if self.inf is not None:
+            drop = drop | self.inf[:m][None]
+        keys = torch.where(drop, torch.full_like(keys, _DROPPED), keys)
+        return torch.sort(keys.reshape(-1)).values
+
+    def _segments(self, keys: torch.Tensor, m: int):
+        """Cut each bucket's run of sorted keys into segments of at most
+        SEGMENT entries.  Returns (idx [E] int32, seg_start, seg_len,
+        seg_bucket [M] int64; unused segments have length 0 and bucket -1)."""
+        e = keys.shape[0]
+        dev = keys.device
+        valid = keys != _DROPPED
+        n_valid = valid.sum()
+        bucket = keys >> self.idx_bits
+        pos = torch.arange(e, device=dev)
+        new_bucket = valid & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                        bucket[1:] != bucket[:-1]])
+        buckets = self.num_windows << self.c
+        rank = pos - _run_starts(new_bucket, buckets)
+        is_seg = valid & (rank % SEGMENT == 0)
+        count = torch.cumsum(is_seg, 0)
+        m_seg = min(e, -(-e // SEGMENT) + buckets)
+        seg_start = torch.searchsorted(count, torch.arange(1, m_seg + 1, device=dev))
+        seg_end = torch.minimum(torch.cat([seg_start[1:], seg_start.new_full((1,), e)]),
+                                n_valid)
+        seg_len = (seg_end - seg_start).clamp(min=0)
+        seg_bucket = torch.where(seg_len > 0, bucket[seg_start.clamp(max=e - 1)],
+                                 torch.full_like(seg_start, -1))
+        idx = (keys & ((1 << self.idx_bits) - 1)).to(torch.int32)
+        return idx, seg_start.contiguous(), seg_len.contiguous(), seg_bucket
+
+    # -- steps 6-8 -----------------------------------------------------------
+
+    def _bucket_table(self, sums, seg_bucket: torch.Tensor):
+        """Fold each bucket's segment sums into its first segment (K7 rounds
+        pairing ranks r and r + d for r a multiple of 2d), then place the
+        bucket sums at window * 2^c + digit of a [W * 2^c] table whose other
+        rows are infinity (all zeros)."""
+        m_seg = seg_bucket.shape[0]
+        dev = seg_bucket.device
+        j = torch.arange(m_seg, device=dev)
+        first = (seg_bucket >= 0) & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                               seg_bucket[1:] != seg_bucket[:-1]])
+        srank = j - _run_starts(first, self.num_windows << self.c)
+        for r in range(self.fold_rounds):
+            d = 1 << r
+            if d >= m_seg:
+                break
+            keep = (srank % (2 * d) == 0) & (seg_bucket >= 0) & \
+                (_shift_down(seg_bucket, d) == seg_bucket)
+            sums = _fold(sums, d, keep)
+        lanes = self.num_windows << self.c
+        dst = torch.where(first, seg_bucket, torch.full_like(seg_bucket, lanes))
+        table = []
+        for a in sums:
+            t = torch.zeros((lanes + 1, NLIMBS), dtype=torch.int32, device=dev)
+            t.index_copy_(0, dst, a)
+            table.append(t[:lanes])
+        return tuple(table)
+
+    def _window_totals(self, buckets):
+        """sum_k k * S_k for every window (lanes w * 2^c + k): inclusive
+        suffix sums U_j = sum_{k >= j} S_k, column 0 cleared, then a tree
+        total, so column 0 ends with sum_{j >= 1} U_j = sum_k k * S_k."""
+        width = 1 << self.c
+        col = torch.arange(buckets[0].shape[0], device=buckets[0].device) % width
+        d = 1
+        while d < width:
+            buckets = _fold(buckets, d, col + d < width)
+            d *= 2
+        zero = (col == 0)[:, None]
+        buckets = tuple(torch.where(zero, torch.zeros_like(a), a) for a in buckets)
+        d = width // 2
+        while d >= 1:
+            buckets = _fold(buckets, d, col < d)
+            d //= 2
+        return tuple(a[::width].contiguous() for a in buckets)
+
+    def _run(self, raw: torch.Tensor):
+        """Steps 2-8 on [m, 8] canonical scalar rows: the MSM as one [1, 8]
+        Jacobian triple on the device (nothing synchronises)."""
+        m = raw.shape[0]
+        if m > self.n:
+            raise ValueError(f"{m} scalars for {self.n} bases")
+        if m == 0:
+            raw = torch.zeros((1, NLIMBS), dtype=torch.int32, device=raw.device)
+            m = 1
+        keys = self._sorted_keys(raw)
+        idx, seg_start, seg_len, seg_bucket = self._segments(keys, m)
+        sums = mk.bucket_sweep(self.table, idx, seg_start, seg_len)
+        totals = self._window_totals(self._bucket_table(sums, seg_bucket))
+        return mk.combine(totals, self.c)
+
+    # -- entry points ----------------------------------------------------------
+
+    def msm(self, scalars):
+        """sum_i scalars[i] * bases[i] for python ints (len <= n); the host
+        affine point (None for infinity)."""
+        raw = to_tensor(FR.to_limbs_np([s % FR_MODULUS for s in scalars]), self.device)
+        with stage("msm"):
+            return ec.to_affine_host(self._run(raw))[0]
+
+    def msm_vec_begin(self, v_mont: torch.Tensor):
+        """Queue the MSM of a device [N, 8] Montgomery Fr vector (N <= n)
+        without synchronising; msm_vec_end resolves it."""
+        raw = fk.mul(FR, v_mont.contiguous(), FR.const_raw(1, v_mont.shape[0], v_mont.device))
+        return self._run(raw)
+
+    def msm_vec_end(self, handle):
+        return ec.to_affine_host(handle)[0]
+
+    def msm_vec(self, v_mont: torch.Tensor):
+        with stage("msm"):
+            return self.msm_vec_end(self.msm_vec_begin(v_mont))

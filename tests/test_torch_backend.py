@@ -3,6 +3,8 @@ kernels' plain versions), against the JAX package's JaxBackend on the same
 numpy-made inputs, carried across with plonkit_tpu_torch.convert.  Vectors
 compare as [16, N] limb arrays, scalars and points as ints: exactly."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,6 +179,52 @@ def test_commits_match_jax_backend(backends, srs_path):
     short_r, short_p = ref_b.slice(rs[1], 0, size - 1), port_b.slice(ps[1], 0, size - 1)
     assert port_b.commit_many(port_ctx, [short_p, ps[2]]) == \
         ref_b.commit_many(ref_ctx, [short_r, rs[2]])
+
+
+def test_msm_context_dispatch(srs_path):
+    """The host Pippenger on the CPU device, as backend_jax.py:541; on the
+    card the device MSM at every size, cached by key until a larger size
+    is asked for."""
+    from plonkit_tpu_torch.backend import HostMSMContext
+    from plonkit_tpu_torch.serialization import CrsHandle
+    handle = CrsHandle(srs_path)
+    cpu = TorchBackend(device="cpu")
+    assert isinstance(cpu.msm_context_from_crs(handle, 1024), HostMSMContext)
+    card = TorchBackend.__new__(TorchBackend)      # no card here: no kernel runs
+    card.device, card._msm_cache = torch.device("cuda"), {}
+    built = []
+
+    def device_msm_context(crs, size):
+        built.append(size)
+        return types.SimpleNamespace(n=size)
+
+    card.device_msm_context = device_msm_context
+    ctx = card.msm_context_from_crs(handle, 16, key="k")
+    assert built == [16] and card.msm_context_from_crs(handle, 8, key="k") is ctx
+    card.msm_context_from_crs(handle, 1024, key="k")
+    card.msm_context_from_crs(handle, 4, key=None)
+    assert built == [16, 1024, 4]
+
+
+def test_device_msm_commits_match_jax_backend(backends, tmp_path):
+    """Commitments at 2^13 through gpu.msm.MSMContext (on the CPU, the
+    kernels' plain versions), built from the SRS file as the card builds
+    it, equal JaxBackend's."""
+    from plonkit_tpu_torch.gpu.msm import MSMContext
+    ref_b, port_b = backends
+    size = 1 << 13
+    path = str(tmp_path / "srs_2pow13.key")
+    gen_key_monomial_form(13).save(path)
+    ref_h = RefCrsHandle(path)
+    ref_ctx = ref_b.msm_context_from_crs(ref_h, size)
+    port_ctx = port_b.device_msm_context(convert.crs_handle(ref_h), size)
+    assert isinstance(port_ctx, MSMContext) and port_ctx.n == size
+    v = Vecs(seed=13)
+    r_full, p_full = v.pair(size)
+    assert port_b.commit(port_ctx, p_full) == ref_b.commit(ref_ctx, r_full)
+    bits = [int(b) for b in v.rng.integers(0, 2, size // 2)]
+    r_bits, p_bits = ref_b.from_ints(bits), port_b.from_ints(bits)
+    assert port_b.commit_many(port_ctx, [p_bits]) == ref_b.commit_many(ref_ctx, [r_bits])
 
 
 def test_host_msm_threads_agree(srs_path):

@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from plonkit_tpu_torch.backend import HostMSMContext
 from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
-from plonkit_tpu_torch.gpu import field_kernels as fk
-from plonkit_tpu_torch.gpu import mont, ntt
+from plonkit_tpu_torch.gpu import ec, field_kernels as fk
+from plonkit_tpu_torch.gpu import mont, msm_kernels as mk, ntt
+from plonkit_tpu_torch.gpu.msm import MSMContext
+from plonkit_tpu_torch.srs import dev_srs_g1
 
 pytestmark = pytest.mark.cuda
 
@@ -30,7 +33,7 @@ def rand_rows(spec, n, seed):
     """[n, 8] Montgomery rows of seeded random values, edges planted."""
     rng = np.random.default_rng(seed)
     vals = [int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(n - 4)]
-    return mont.to_tensor(spec.to_mont_np(vals + [0, 1, spec.p - 1, spec.p - 2]))
+    return mont.to_tensor(spec.to_mont_np(vals + [0, 1, spec.p - 1, spec.p - 2]), "cpu")
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
@@ -70,3 +73,70 @@ def test_backend_rounds_on_the_card_match_the_cpu(card):
 
     (rows_c, ev_c), (rows_g, ev_g) = run(cpu, "cpu"), run(gpu, card)
     assert all(torch.equal(a, b) for a, b in zip(rows_c, rows_g)) and ev_c == ev_g
+
+
+def _msm_inputs(card, n, seed):
+    """A device MSM context over n dev-SRS bases, and seeded scalars with
+    a planted hot bucket (window 0, digit 3) and some zeros."""
+    ctx = MSMContext(dev_srs_g1(n, 42), device=card)
+    rng = np.random.default_rng(seed)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % mont.FR.p for _ in range(n)]
+    scalars[:300] = [3] * 300
+    scalars[300:400] = [0] * 100
+    raw = mont.to_tensor(mont.FR.to_limbs_np(scalars), card)
+    return ctx, scalars, raw
+
+
+def test_msm_kernels_match_plain(card):
+    ctx, _, raw = _msm_inputs(card, 1 << 12, 20)
+    idx, seg_start, seg_len, seg_bucket = ctx._segments(ctx._sorted_keys(raw), 1 << 12)
+    before = dict(mk.launches)
+    sums = mk.bucket_sweep(ctx.table, idx, seg_start, seg_len)
+    assert all(torch.equal(a, b) for a, b in zip(
+        sums, mk.bucket_sweep_plain(ctx.table, idx, seg_start, seg_len)))
+    table = ctx._bucket_table(sums, seg_bucket)
+    q = tuple(a.roll(1, 0).contiguous() for a in table)
+    assert all(torch.equal(a, b) for a, b in zip(mk.padd(table, q), mk.padd_plain(table, q)))
+    totals = ctx._window_totals(table)
+    assert all(torch.equal(a, b) for a, b in zip(mk.combine(totals, ctx.c),
+                                                 mk.combine_plain(totals, ctx.c)))
+    assert all(mk.launches[k] > before[k] for k in mk.launches)
+
+
+def test_padd_degenerate_lanes_match_plain(card):
+    """P + P, P + (-P), P + inf, inf + Q, inf + inf on the card."""
+    pts = dev_srs_g1(8, 42)
+    x, y, inf = ec.affine_from_host(pts, card)
+    p = ec.jacobian_from_affine((x, y, inf))
+    z = ec.infinity(8, card)
+    for q in (p, ec.neg(p), z):
+        for a, b in ((p, q), (q, p), (z, z)):
+            assert all(torch.equal(u, v) for u, v in zip(mk.padd(a, b), mk.padd_plain(a, b)))
+
+
+def test_msm_on_the_card_matches_native(card):
+    n = 1 << 14
+    ctx, scalars, _ = _msm_inputs(card, n, 21)
+    host = HostMSMContext.from_points(dev_srs_g1(n, 42))
+    want = host.msm_rows(mont.FR.to_limbs_np(scalars).view(np.uint8))
+    assert ctx.msm(scalars) == want
+    v = mont.to_tensor(mont.FR.to_mont_np(scalars), card)
+    assert ctx.msm_vec(v) == want
+
+
+def test_small_commitments_on_the_card(card, tmp_path):
+    """A backend on the card commits on the card at every size: a 2^10
+    context is the device MSM, and its commitments equal the host's."""
+    from plonkit_tpu_torch.api import gen_key_monomial_form
+    from plonkit_tpu_torch.serialization import CrsHandle
+    path = str(tmp_path / "srs_2pow10.key")
+    gen_key_monomial_form(10).save(path)
+    handle = CrsHandle(path)
+    gpu = TorchBackend("cuda")
+    ctx = gpu.msm_context_from_crs(handle, 1 << 10)
+    assert isinstance(ctx, MSMContext)
+    host = TorchBackend("cpu").msm_context_from_crs(handle, 1 << 10)
+    v = rand_rows(mont.FR, 1 << 10, 30)
+    before = mk.launches["bucket_sweep"]
+    assert gpu.commit(ctx, FrVec(v.to(card))) == TorchBackend("cpu").commit(host, FrVec(v))
+    assert mk.launches["bucket_sweep"] > before
