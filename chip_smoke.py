@@ -8,13 +8,16 @@ Phases, each printing a JSON line with its wall seconds:
 1. build: the CUDA kernels (csrc/*.cu, one nvcc per source, all at once) and
    the native host library (native/bn254.cpp), then the card's name and
    power limit as nvidia-smi reports them;
-2. srs: the tau = 42 dev SRS of 2^20 points (serial python), written as a
-   key file; its first two points must be G and 42 G;
+2. srs: the tau = 42 dev SRS of 2^20 points, made by the CLI's
+   `setup -p 20` (srs.py, serial python); its first two points must be G
+   and 42 G;
 3. kernels: every kernel on the card against its plain PyTorch version on
    the card, on the same inputs, equal bit for bit (integer arithmetic):
-   K1 mul, K2a add, K2b sub, K3 butterfly_dif at 2^20 elements (random
-   Montgomery Fr values from a fixed numpy seed, with 0, 1, p-1 and p-2
-   planted; K3 with a real stage's twiddles); K6 bucket_sweep on the
+   K1 mul, K2a add, K2b sub, K4 mul_add at 2^20 elements and K3
+   butterfly_dif, K5 butterfly on 2^19 butterflies (random Montgomery Fr
+   values from a fixed numpy seed, with 0, 1, p-1 and p-2 planted; K3 and
+   K5 with a real stage's twiddles, K5 reading the even and odd rows of one
+   buffer as the inverse transform does); K6 bucket_sweep on the
    segments of one MSM of 2^20 random scalars over the SRS bases (the main
    path's shape) and on the sorted window-0 entries of 2^16 of them, both
    with a planted bucket of more than four segments; K7 padd at 2^20 lanes with
@@ -36,7 +39,19 @@ Phases, each printing a JSON line with its wall seconds:
    and proof.bin again with every commitment in the host Pippenger (a
    TorchBackend subclass defined here): the bytes must be identical.  A
    last prove on the device setup runs under torch.profiler: device time by
-   kernel, and the device's busy time and idle share over its wall time.
+   kernel, and the device's busy time and idle share over its wall time;
+7. cli: `python3 -m plonkit_tpu_torch` in subprocesses, on the card, on the
+   in-repo circuit scratch/recursive_r22 (domain 64): setup -p 10, analyse,
+   export-verification-key (its vk.bin must equal the fixture's, made by the
+   JAX package), prove (keccak), dump-lagrange and prove -l (the same
+   proof.bin), verify (exit 0) and a tampered proof (exit 144),
+   generate-verifier (no placeholder left);
+8. cli at full width: the main path's circuit written as .r1cs and .wtns,
+   then export-verification-key, prove and verify through the CLI: vk.bin
+   and proof.bin must equal the main phase's bytes from the API.  No CLI
+   process may rebuild a kernel library.  Phases 7 and 8 run at the same
+   time, and so do the calls of each that need no file of another: their
+   seconds are wall times of processes that share the host and the card.
 
 Then the kernels line, the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
@@ -50,13 +65,14 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 SEED = 20240917
-KERNEL_LOG2 = 20        # width of K1-K3 and K7
+KERNEL_LOG2 = 20        # width of K1-K5 and K7
 SWEEP_LOG2 = 16         # scalars of the K6 one-window check
 CROSS_LOG2 = 10         # phase 5 domain
 MAIN_LOG2 = 20          # phase 6 domain and SRS size
@@ -74,20 +90,28 @@ INT32_MUL_PER_S = 67e12 / 4
 MONT_MUL_OPS = 2 * (64 + 64) + 8
 POINT_BYTES = 3 * 32                       # a Jacobian point, [3, 8] words
 MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # products of madd, add, double
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit of phase 7
 SOURCES = {
     "K1 mul": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:149"),
     "K2a add": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:153"),
     "K2b sub": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:157"),
     "K3 butterfly_dif": ("plonkit_tpu_torch/csrc/ntt.cu",
                          "plonkit_tpu/tpu/pallas_kernels.py:169"),
+    "K4 mul_add": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:161"),
+    "K5 butterfly": ("plonkit_tpu_torch/csrc/ntt.cu", "plonkit_tpu/tpu/pallas_kernels.py:165"),
     "K6 bucket_sweep": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:166"),
     "K7 padd": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:213"),
     "K8 combine": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:271"),
 }
 
 
+_print_lock = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    with _print_lock:
+        print(json.dumps(obj), flush=True)
 
 
 def card_line() -> str:
@@ -132,14 +156,36 @@ def phase_build() -> None:
     print(card_line(), flush=True)
 
 
+def cli(*args, cwd: str, expect: int = 0) -> float:
+    """`python3 -m plonkit_tpu_torch *args` in a subprocess (the default
+    backend, the card); raises unless it exits with `expect`.  Returns its
+    wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "plonkit_tpu_torch", *args], cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != expect:
+        raise AssertionError(f"plonkit_tpu_torch {' '.join(args)} exited {proc.returncode}, "
+                             f"expected {expect}:\n{proc.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def cli_together(*calls, cwd: str) -> dict:
+    """Several CLI processes at once, each (label, args) or (label, args,
+    expect); returns {label: wall seconds}, raising if any call failed."""
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = {c[0]: pool.submit(cli, *c[1], cwd=cwd, expect=c[2] if len(c) > 2 else 0)
+                   for c in calls}
+        return {label: f.result() for label, f in futures.items()}
+
+
 def phase_srs(tmp: str) -> str:
-    from plonkit_tpu_torch.api import gen_key_monomial_form
     from plonkit_tpu_torch.curve import G1_GEN, g1_mul
     from plonkit_tpu_torch.gpu.mont import FQ
     from plonkit_tpu_torch.serialization import load_crs_g1_limbs
     t0 = time.perf_counter()
     key = os.path.join(tmp, f"srs_2pow{MAIN_LOG2}.key")
-    gen_key_monomial_form(MAIN_LOG2).save(key)
+    cli("setup", "-p", str(MAIN_LOG2), "-m", key, cwd=tmp)
     x, y, inf = load_crs_g1_limbs(key, 2)
     pts = [None if inf[i] else (FQ.from_limbs_np(x[i:i + 1])[0], FQ.from_limbs_np(y[i:i + 1])[0])
            for i in range(2)]
@@ -205,19 +251,27 @@ def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=Tru
 
 
 def _field_rows() -> list:
-    from plonkit_tpu_torch.fields import get_domain_omega
+    import torch
+    from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
     from plonkit_tpu_torch.gpu import field_kernels as fk, mont, ntt
     from plonkit_tpu_torch.gpu.mont import FR, to_tensor
     n = 1 << KERNEL_LOG2
     rng = np.random.default_rng(SEED)
     a = to_tensor(_random_fr_rows(rng, n, 0), DEVICE)
     b = to_tensor(_random_fr_rows(rng, n, n - 4), DEVICE)
+    c = to_tensor(_random_fr_rows(rng, n, n // 2), DEVICE)
     # K3 on one stage of a 2^20-point NTT: lo/hi halves and the stage-1
     # twiddles w^(2 * (j >> 1))
     half = n // 2
     omega_pows = ntt.powers(get_domain_omega(n), half, DEVICE)
     tw = omega_pows[::2][:half >> 1].repeat_interleave(2, dim=0)
     lo, hi = a[:half], a[half:]
+    # K5 on stage 1 of a 2^20-point inverse NTT: the even and odd rows of
+    # one buffer, twiddles of w^-1
+    inv_pows = ntt.powers(fr_inv(get_domain_omega(n)), half, DEVICE)
+    tw_inv = inv_pows[::2][:half >> 1].repeat_interleave(2, dim=0)
+    even, odd = b[0::2], b[1::2]
+    out = torch.empty_like(b)
 
     def plain_bfly():
         return mont.add(FR, lo, hi), mont.mont_mul(FR, tw, mont.sub(FR, lo, hi))
@@ -230,6 +284,11 @@ def _field_rows() -> list:
         _row("K2b sub", lambda: fk.sub(FR, a, b), lambda: mont.sub(FR, a, b), n,
              3 * 32 * n, 0, 20),
         _row("K3 butterfly_dif", lambda: ntt.butterfly_dif(lo, hi, tw), plain_bfly, half,
+             5 * 32 * half, MONT_MUL_OPS * half, 20),
+        _row("K4 mul_add", lambda: fk.mul_add(FR, a, b, c), lambda: mont.mul_add(FR, a, b, c), n,
+             4 * 32 * n, MONT_MUL_OPS * n, 20),
+        _row("K5 butterfly", lambda: ntt.butterfly(FR, even, odd, tw_inv, out),
+             lambda: mont.butterfly(FR, even, odd, tw_inv), half,
              5 * 32 * half, MONT_MUL_OPS * half, 20),
     ]
 
@@ -411,7 +470,7 @@ def _reset_launches() -> None:
             counts[k] = 0
 
 
-def phase_main(key: str) -> dict:
+def phase_main(key: str):
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.api import SetupForProver, verify
     from plonkit_tpu_torch.frontend.synthetic import synth_circuit
@@ -441,6 +500,7 @@ def phase_main(key: str) -> dict:
     times["prove"] = time.perf_counter() - t0
     launches = {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
                 "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
+                "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
                 "K6 bucket_sweep": mk.launches["bucket_sweep"], "K7 padd": mk.launches["padd"],
                 "K8 combine": mk.launches["combine"]}
     stages = dict(profiling.last_timings)
@@ -481,7 +541,96 @@ def phase_main(key: str) -> dict:
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     profile_prove(setup, circuit, vk)
-    return launches
+    return launches, circuit, vk.to_bytes(), proof.to_bytes()
+
+
+def _build_snapshot() -> dict:
+    """name -> (size, mtime) of every built library, to show that no CLI
+    process rebuilt one."""
+    from plonkit_tpu_torch.gpu import build
+    return {f: (st.st_size, st.st_mtime_ns) for f in sorted(os.listdir(build.BUILD_DIR))
+            for st in [os.stat(os.path.join(build.BUILD_DIR, f))]}
+
+
+def _same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_cli(tmp: str) -> None:
+    """The base subcommands on the in-repo domain-64 circuit, on the card.
+    Calls that do not need each other's files run at once."""
+    t_all = time.perf_counter()
+    d = os.path.join(tmp, "cli64")
+    os.makedirs(d)
+    circuit = os.path.join(FIXTURES, "circuit.r1cs.json")
+    witness = os.path.join(FIXTURES, "witness_0.json")
+    s = cli_together(("setup", ["setup", "-p", "10", "-m", "setup.key"]),
+                     ("analyse", ["analyse", "-c", circuit, "-o", "analyse.json"]), cwd=d)
+    s.update(cli_together(
+        ("export-verification-key", ["export-verification-key", "-m", "setup.key",
+                                     "-c", circuit, "-v", "vk.bin"]),
+        ("prove", ["prove", "-m", "setup.key", "-c", circuit, "-w", witness]),
+        ("dump-lagrange", ["dump-lagrange", "-m", "setup.key", "-l", "lagrange.key",
+                           "-c", circuit]), cwd=d))
+    with open(os.path.join(d, "proof.bin"), "rb") as f:
+        blob = bytearray(f.read())
+    blob[17] ^= 1                                   # a bit of the public input
+    with open(os.path.join(d, "tampered.bin"), "wb") as f:
+        f.write(blob)
+    s.update(cli_together(
+        ("prove -l", ["prove", "-m", "setup.key", "-l", "lagrange.key", "-c", circuit,
+                      "-w", witness, "-p", "proof_l.bin", "-j", "proof_l.json",
+                      "-i", "public_l.json"]),
+        ("verify", ["verify", "-p", "proof.bin", "-v", "vk.bin"]),
+        ("verify tampered", ["verify", "-p", "tampered.bin", "-v", "vk.bin"], 400 % 256),
+        ("generate-verifier", ["generate-verifier", "-v", "vk.bin", "-s", "verifier.sol"]),
+        cwd=d))
+    with open(os.path.join(d, "analyse.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(d, "verifier.sol")) as f:
+        sol = f.read()
+    same = {"vk.bin = fixture vk.bin": _same_file(os.path.join(d, "vk.bin"),
+                                                  os.path.join(FIXTURES, "vk.bin")),
+            "prove -l = prove": _same_file(os.path.join(d, "proof_l.bin"),
+                                           os.path.join(d, "proof.bin"))}
+    emit({"phase": "cli", "domain": 64, "identical": same, "num_gates": stats["num_gates"],
+          "contract_placeholders_left": sol.count("{{"),
+          "seconds": {k: round(v, 3) for k, v in s.items()},
+          "total_s": round(time.perf_counter() - t_all, 3)})
+    if not all(same.values()) or "{{" in sol:
+        raise AssertionError(f"CLI outputs differ: {same}, placeholders {sol.count('{{')}")
+
+
+def phase_cli_full(tmp: str, key: str, circuit, vk_bytes: bytes, proof_bytes: bytes) -> None:
+    """The main path's circuit through the CLI: its vk.bin and proof.bin
+    must be the API's bytes.  export-verification-key and prove run at
+    once (each transpiles the circuit on the host), then verify."""
+    from plonkit_tpu_torch.frontend.r1cs import write_r1cs_bin
+    from plonkit_tpu_torch.frontend.witness import write_witness_bin
+    t_all = time.perf_counter()
+    d = os.path.join(tmp, f"cli2pow{MAIN_LOG2}")
+    os.makedirs(d)
+    s = {}
+    t0 = time.perf_counter()
+    write_r1cs_bin(circuit.r1cs, os.path.join(d, "circuit.r1cs"))
+    s["write .r1cs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_witness_bin(circuit.witness, os.path.join(d, "witness.wtns"))
+    s["write .wtns"] = time.perf_counter() - t0
+    s.update(cli_together(("export-verification-key", ["export-verification-key", "-m", key]),
+                          ("prove", ["prove", "-m", key]), cwd=d))
+    s["verify"] = cli("verify", cwd=d)
+    with open(os.path.join(d, "vk.bin"), "rb") as f:
+        vk_cli = f.read()
+    with open(os.path.join(d, "proof.bin"), "rb") as f:
+        proof_cli = f.read()
+    same = {"vk.bin": vk_cli == vk_bytes, "proof.bin": proof_cli == proof_bytes}
+    emit({"phase": "cli_full", "domain": 1 << MAIN_LOG2, "identical_to_api": same,
+          "seconds": {k: round(v, 3) for k, v in s.items()},
+          "total_s": round(time.perf_counter() - t_all, 3)})
+    if not all(same.values()):
+        raise AssertionError(f"CLI and API bytes differ at 2^{MAIN_LOG2}: {same}")
 
 
 def merged_busy_us(intervals) -> float:
@@ -552,7 +701,15 @@ def main() -> int:
         phase_msm(ctx, HostMSMContext.from_limbs(*handle.g1_limbs(1 << MAIN_LOG2)))
         del ctx
         phase_cross_check(tmp)
-        launches = phase_main(key)
+        launches, circuit, vk_bytes, proof_bytes = phase_main(key)
+        torch.cuda.empty_cache()
+        built = _build_snapshot()
+        with ThreadPoolExecutor(1) as pool:     # phases 7 and 8 at once
+            full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes)
+            phase_cli(tmp)
+            full.result()
+        if _build_snapshot() != built:
+            raise AssertionError("a CLI process rebuilt a kernel library")
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"kernels": rows})

@@ -1,18 +1,21 @@
 """Entry points of the port, mirroring plonkit_tpu/api.py (and plonkit's
 src/plonk.rs orchestration layer): SetupForProver, make_verification_key,
-verify, and the deterministic dev SRS.
+verify, analyse, the deterministic dev SRS and its Lagrange form.
 
 The card is the default: SetupForProver builds a TorchBackend on
 `device="cuda"` unless it is given a backend or another device.
 """
 
+import json
 import logging
-from typing import Optional
+from dataclasses import asdict, dataclass, field
+from typing import List, Optional
 
-from .curve import G2_GEN, g2_mul
+from .curve import G2_GEN, g1_add, g1_mul, g1_neg, g2_mul
+from .fields import FR_MODULUS, fr_inv, get_domain_omega
 from .frontend.circuit import CircomCircuit
-from .frontend.transpiler import build_witness_plan
-from .plonk.prover import ProverContext, prove as _prove
+from .frontend.transpiler import build_witness_plan, transpile
+from .plonk.prover import ProverContext, prove as _prove, validate_witness
 from .plonk.setup import (SETUP_MAX_POW2, SETUP_MIN_POW2,
                           make_setup_polynomials, make_verification_key)
 from .plonk.verifier import verify as _verify
@@ -26,6 +29,39 @@ log = logging.getLogger("plonkit_tpu_torch")
 DEV_TAU = 42
 
 
+@dataclass
+class AnalyseResult:
+    num_inputs: int
+    num_aux: int
+    num_variables: int
+    num_constraints: int
+    num_nontrivial_constraints: int
+    num_gates: int
+    num_hints: int
+    constraint_stats: List[dict] = field(default_factory=list)
+
+    def to_json(self, include_stats: bool = True, pretty: bool = False) -> str:
+        d = asdict(self)
+        if not include_stats or not d["constraint_stats"]:
+            d.pop("constraint_stats")
+        return json.dumps(d, indent=2 if pretty else None,
+                          separators=None if pretty else (",", ":"))
+
+
+def analyse(circuit: CircomCircuit) -> AnalyseResult:
+    tc = transpile(circuit)
+    return AnalyseResult(
+        num_inputs=circuit.r1cs.num_inputs,
+        num_aux=circuit.r1cs.num_aux,
+        num_variables=circuit.r1cs.num_variables,
+        num_constraints=len(circuit.r1cs.constraints),
+        num_nontrivial_constraints=len(tc.constraint_stats),
+        num_gates=tc.num_constraint_gates,
+        num_hints=len(tc.hints),
+        constraint_stats=[{"name": s.name, "num_gates": s.num_gates} for s in tc.constraint_stats],
+    )
+
+
 def gen_key_monomial_form(power: int) -> Crs:
     """Deterministic dev SRS with tau = 42, the same points as
     plonkit_tpu.api.gen_key_monomial_form (srs.py says how it is faster)."""
@@ -33,6 +69,42 @@ def gen_key_monomial_form(power: int) -> Crs:
         raise ValueError("setup power of two is not in the correct range")
     g1 = dev_srs_g1(1 << power, DEV_TAU)
     return Crs(g1, [G2_GEN, g2_mul(G2_GEN, DEV_TAU)])
+
+
+def crs_lagrange_form(crs, domain_size: int) -> Crs:
+    """Monomial -> Lagrange form: L_i(tau) * G = iNTT over the first
+    `domain_size` G1 points (a group NTT), host python as in the JAX
+    package: ~domain_size * log2(domain_size) / 2 + domain_size full scalar
+    multiplications.  A group NTT on the card is later work."""
+    if domain_size & (domain_size - 1):
+        raise ValueError(f"domain size {domain_size} is not a power of two")
+    points = _group_ntt(list(crs.g1_bases[:domain_size]), fr_inv(get_domain_omega(domain_size)))
+    inv_n = fr_inv(domain_size)
+    return Crs([g1_mul(p, inv_n) for p in points], list(crs.g2_monomial_bases))
+
+
+def _group_ntt(points, omega):
+    """Radix-2 DIT NTT over G1 points (bit reversal, then butterflies)."""
+    n = len(points)
+    bits = n.bit_length() - 1
+    out = [None] * n
+    for i in range(n):
+        j = int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
+        out[j] = points[i]
+    size = 2
+    while size <= n:
+        w_step = pow(omega, n // size, FR_MODULUS)
+        half = size // 2
+        for start in range(0, n, size):
+            w = 1
+            for k in range(half):
+                lo = out[start + k]
+                hi = g1_mul(out[start + k + half], w)
+                out[start + k] = g1_add(lo, hi)
+                out[start + k + half] = g1_add(lo, g1_neg(hi))
+                w = w * w_step % FR_MODULUS
+        size *= 2
+    return out
 
 
 class SetupForProver:
@@ -62,6 +134,11 @@ class SetupForProver:
     def make_verification_key(self) -> VerificationKey:
         return make_verification_key(self.setup_polynomials, self.crs, backend=self.backend)
 
+    def validate_witness(self, circuit: CircomCircuit) -> None:
+        """Raise ProvingError unless the witness satisfies every gate."""
+        cols, pub = self._witness_plan.evaluate(circuit.witness)
+        validate_witness(self.setup_polynomials, cols, pub, backend=self.backend)
+
     def prove(self, circuit: CircomCircuit, transcript: str = "keccak") -> Proof:
         with stage("witness synthesis"):
             size = self.setup_polynomials.domain_size
@@ -73,6 +150,9 @@ class SetupForProver:
                                              crs_lagrange=self.key_lagrange_form)
         return _prove(self.setup_polynomials, cols, pub, ctx=self._prover_ctx,
                       transcript=transcript)
+
+    def get_srs_lagrange_form_from_monomial_form(self) -> Crs:
+        return crs_lagrange_form(self.crs, self.setup_polynomials.domain_size)
 
 
 def verify(vk: VerificationKey, proof: Proof, transcript: str = "keccak") -> bool:

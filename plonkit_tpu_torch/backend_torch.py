@@ -4,11 +4,13 @@ ported from plonkit_tpu/backend_jax.py.
 Vectors are `FrVec` handles over [N, 8] int32 Montgomery rows
 (gpu/mont.py) that stay on the backend's device; python ints cross the
 boundary only for file IO and transcript scalars.  Every field operation
-goes through the kernel wrappers (gpu/field_kernels.py K1/K2, gpu/ntt.py
-K3): on the card each is one kernel launch, on the CPU the plain version.
-The JAX package's fused programs (_gate_residual_jit, _quotient_column_jit,
-_perm_grand_product_jit, the scans) become the same sequences of K1/K2
-launches that they compose from pk.mul/pk.add; fusing them is later work.
+goes through the kernel wrappers (gpu/field_kernels.py K1/K2/K4,
+gpu/ntt.py K3/K5): on the card each is one kernel launch, on the CPU the
+plain version.  The JAX package's fused programs (_gate_residual_jit,
+_quotient_column_jit, _perm_grand_product_jit, the scans) become sequences
+of launches: each add(x, mul(a, b)) they compose from pk.mul/pk.add is one
+K4 mul_add(a, b, x) here, the rest K1/K2; fusing longer chains is later
+work.
 Commitments of a backend on the card run on the card at every size
 (gpu/msm.py over the MSM kernels K6-K8); a backend on the CPU commits in
 the host Pippenger (backend.HostMSMContext), as backend_jax does on a CPU.
@@ -67,6 +69,9 @@ class TorchBackend:
 
     def _add(self, a, b):
         return fk.add(FR, a, b)
+
+    def _mul_add(self, a, b, c):
+        return fk.mul_add(FR, a, b, c)
 
     def _scale(self, a: torch.Tensor, k: int) -> torch.Tensor:
         return fk.mul(FR, a, self._const(k, a.shape[0]))
@@ -261,23 +266,23 @@ class TorchBackend:
         return FrVec(self._scale(a.data, k))
 
     def scale_add(self, a: FrVec, k: int, c: FrVec) -> FrVec:
-        """a * k + c."""
-        return FrVec(self._add(self._scale(a.data, k), c.data))
+        """a * k + c (one K4 launch)."""
+        return FrVec(self._mul_add(a.data, self._const(k, len(a)), c.data))
 
     # -- composite rounds ----------------------------------------------------
 
     def gate_residual(self, sel_v, wires_v, pi_vec) -> FrVec:
         """q_a*a + q_b*b + q_c*c + q_d*d + q_m*a*b + q_const + q_dnext*rot(d)
         + PI, as backend_jax._gate_residual_jit."""
-        mul, add = self._mul, self._add
+        mul, add, mul_add = self._mul, self._add, self._mul_add
         q = [s.data for s in sel_v]
         w = [x.data for x in wires_v]
-        acc = add(mul(q[0], w[0]), mul(q[1], w[1]))
-        acc = add(acc, mul(q[2], w[2]))
-        acc = add(acc, mul(q[3], w[3]))
-        acc = add(acc, mul(q[4], mul(w[0], w[1])))
+        acc = mul_add(q[1], w[1], mul(q[0], w[0]))
+        acc = mul_add(q[2], w[2], acc)
+        acc = mul_add(q[3], w[3], acc)
+        acc = mul_add(q[4], mul(w[0], w[1]), acc)
         acc = add(acc, q[5])
-        acc = add(acc, mul(q[6], torch.roll(w[3], -1, dims=0)))
+        acc = mul_add(q[6], torch.roll(w[3], -1, dims=0), acc)
         return FrVec(add(acc, pi_vec.data))
 
     def any_nonzero(self, v: FrVec) -> bool:
@@ -289,7 +294,7 @@ class TorchBackend:
         """Round 3's coset-domain pipeline, as
         backend_jax._quotient_column_jit: t = (gate + alpha*perm +
         alpha^2*(z-1)*L0) * Z_H^-1 over the LDE domain."""
-        mul, add = self._mul, self._add
+        mul, add, mul_add = self._mul, self._add, self._mul_add
         n = len(z_l)
 
         def bc(k):
@@ -297,27 +302,28 @@ class TorchBackend:
         sel = [s.data for s in sel_l]
         wires = [w.data for w in wires_l]
         gate = mul(sel[0], wires[0])
-        gate = add(gate, mul(sel[1], wires[1]))
-        gate = add(gate, mul(sel[2], wires[2]))
-        gate = add(gate, mul(sel[3], wires[3]))
-        gate = add(gate, mul(sel[4], mul(wires[0], wires[1])))
+        gate = mul_add(sel[1], wires[1], gate)
+        gate = mul_add(sel[2], wires[2], gate)
+        gate = mul_add(sel[3], wires[3], gate)
+        gate = mul_add(sel[4], mul(wires[0], wires[1]), gate)
         gate = add(gate, sel[5])
-        gate = add(gate, mul(sel[6], d_next_l.data))
+        gate = mul_add(sel[6], d_next_l.data, gate)
         gate = add(gate, pi_l.data)
 
         gamma_v, beta_v = bc(gamma), bc(beta)
         perm_num = z_l.data
         perm_den = z_next_l.data
         for j, k in enumerate(k_cols):
-            t_n = add(add(mul(x_coset.data, bc(k * beta)), wires[j]), gamma_v)
-            t_d = add(add(mul(sigma_l[j].data, beta_v), wires[j]), gamma_v)
+            w_gamma = add(wires[j], gamma_v)
+            t_n = mul_add(x_coset.data, bc(k * beta), w_gamma)
+            t_d = mul_add(sigma_l[j].data, beta_v, w_gamma)
             perm_num = mul(perm_num, t_n)
             perm_den = mul(perm_den, t_d)
         perm = fk.sub(FR, perm_num, perm_den)
 
-        numerator = add(gate, mul(perm, bc(alpha)))
+        numerator = mul_add(perm, bc(alpha), gate)
         z_minus_1_l0 = mul(add(z_l.data, bc(R - 1)), l0_l.data)
-        numerator = add(numerator, mul(z_minus_1_l0, bc(alpha * alpha)))
+        numerator = mul_add(z_minus_1_l0, bc(alpha * alpha), numerator)
         return FrVec(mul(numerator, vanishing_inv.data))
 
     def permutation_grand_product(self, omega_pows, sigma_v, wires_v,
@@ -325,14 +331,14 @@ class TorchBackend:
         """Round 2: z = grand_product(prod_j (k_j*beta*X + w_j + gamma) /
         prod_j (beta*sigma_j + w_j + gamma)), as
         backend_jax._perm_grand_product_jit."""
-        mul, add = self._mul, self._add
+        mul, add, mul_add = self._mul, self._add, self._mul_add
         n = len(wires_v[0])
         gamma_v, beta_v = self._const(gamma, n), self._const(beta, n)
         num = den = None
         for j, k in enumerate(k_cols):
-            w = wires_v[j].data
-            t_n = add(add(mul(omega_pows.data, self._const(k * beta, n)), w), gamma_v)
-            t_d = add(add(mul(sigma_v[j].data, beta_v), w), gamma_v)
+            w_gamma = add(wires_v[j].data, gamma_v)
+            t_n = mul_add(omega_pows.data, self._const(k * beta, n), w_gamma)
+            t_d = mul_add(sigma_v[j].data, beta_v, w_gamma)
             num = t_n if num is None else mul(num, t_n)
             den = t_d if den is None else mul(den, t_d)
         ratio = mul(num, self._batch_inverse(den))

@@ -172,7 +172,8 @@ class Transpiler:
             work.append((output, R - 1))
         n = len(work)
         if n == 0:
-            assert constant % R == 0, "unsatisfiable constant constraint"
+            if constant % R != 0:
+                raise ValueError("unsatisfiable constant constraint")
             return
         if n <= STATE_WIDTH:
             wires = [v for v, _ in work] + [DUMMY] * (STATE_WIDTH - n)
@@ -236,7 +237,8 @@ class Transpiler:
             # constant * constant = C
             prod = a_const * b_const % R
             if not c_terms:
-                assert (c_const - prod) % R == 0, "inconsistent constant constraint"
+                if (c_const - prod) % R != 0:
+                    raise ValueError("inconsistent constant constraint")
                 return "is_constant"
             self._emit_addition_gates(c_terms, (c_const - prod) % R, None)
             return "merge_c_constant_ab"
@@ -320,8 +322,8 @@ class WitnessPlan:
         self._native_prog = None
 
     def _values(self, witness: List[int]) -> List[int]:
-        assert len(witness) == self.witness_len, \
-            (len(witness), self.witness_len)
+        if len(witness) != self.witness_len:
+            raise ValueError((len(witness), self.witness_len))
         vals = list(witness)
         append = vals.append
         for terms, const in self.prog:

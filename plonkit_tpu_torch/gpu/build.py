@@ -28,11 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "field": {name: [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
-              for name in ("plonkit_field_mul", "plonkit_field_add",
-                           "plonkit_field_sub")},
+    "field": dict({name: [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
+                   for name in ("plonkit_field_mul", "plonkit_field_add",
+                                "plonkit_field_sub")},
+                  plonkit_field_mul_add=[_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]),
     "ntt": {"plonkit_butterfly_dif":
-            [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]},
+            [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+            "plonkit_butterfly":
+            [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]},
     "msm": {"plonkit_bucket_sweep": [_P] * 7 + [ctypes.c_longlong, _P],
             "plonkit_padd": [_P] * 9 + [ctypes.c_longlong, _P],
             "plonkit_combine": [_P] * 3 + [ctypes.c_int, ctypes.c_int] + [_P] * 4},

@@ -1,5 +1,6 @@
-"""Wrappers of the elementwise field kernels K1 mul, K2a add and K2b sub
-(csrc/field.cu), ported from plonkit_tpu/tpu/pallas_kernels.py mul/add/sub.
+"""Wrappers of the elementwise field kernels K1 mul, K2a add, K2b sub and
+K4 mul_add (csrc/field.cu), ported from plonkit_tpu/tpu/pallas_kernels.py
+mul/add/sub/mul_add.
 
 Operands are [N, 8] int32 contiguous tensors of one shape on one device
 (gpu/mont.py layout).  A tensor on the CPU takes the plain version from
@@ -12,7 +13,7 @@ import torch
 from . import build, mont
 from .mont import NLIMBS, FieldSpec
 
-launches = {"mul": 0, "add": 0, "sub": 0}
+launches = {"mul": 0, "add": 0, "sub": 0, "mul_add": 0}
 
 
 def check_operands(*ts: torch.Tensor) -> None:
@@ -34,11 +35,12 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(op: str, spec: FieldSpec, *ins: torch.Tensor) -> torch.Tensor:
+    a = ins[0]
     out = torch.empty_like(a)
     if a.shape[0]:
         fn = getattr(build.load("field"), "plonkit_field_" + op)
-        build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+        build.check(fn(*(t.data_ptr() for t in ins), out.data_ptr(), a.shape[0],
                        spec.kernel_id, stream_ptr(a)), f"K {op}")
         launches[op] += 1
     return out
@@ -66,3 +68,11 @@ def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return mont.sub(spec, a, b)
     return _launch("sub", spec, a, b)
+
+
+def mul_add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """K4: a * b * 2^-256 + c mod p, one launch for the pair mul, add."""
+    check_operands(a, b, c)
+    if not a.is_cuda:
+        return mont.mul_add(spec, a, b, c)
+    return _launch("mul_add", spec, a, b, c)

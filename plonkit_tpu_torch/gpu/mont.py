@@ -7,7 +7,8 @@ planar [16, N] 16-bit limbs (plonkit_tpu/tpu/mont.py), so both hold the same
 value for every element; convert.py repacks one layout into the other.
 Every result is fully reduced into [0, p).
 
-The ops here are the plain versions of the CUDA kernels in csrc/: the
+The ops here are the plain versions of the CUDA kernels in csrc/ (K1 mul,
+K2 add/sub, K4 mul_add, K5 butterfly; K3 is composed in ntt.py): the
 wrappers in field_kernels.py and ntt.py take them for tensors on the CPU,
 and chip_smoke.py holds each kernel against them on the card.  They compute
 on int64 tensors holding 16-bit limbs (limb axis first), so no product or
@@ -178,6 +179,17 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         # T[0] is now divisible by 2^16: shift down one limb
         T = torch.cat([(T[1] + (T[0] >> 16))[None], T[2:], z1])
     return _join16(_cond_sub_p(spec, _carry16(T[:_NL16])))
+
+
+def mul_add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b * 2^-256 + c mod p (K4)."""
+    return add(spec, mont_mul(spec, a, b), c)
+
+
+def butterfly(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
+    """Radix-2 DIT butterfly (K5): t = w * hi; (lo + t, lo - t)."""
+    t = mont_mul(spec, w, hi)
+    return add(spec, lo, t), sub(spec, lo, t)
 
 
 def to_mont(spec: FieldSpec, raw: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,30 @@
-"""Radix-2 NTT over Fr on the K3 butterfly (csrc/ntt.cu), ported from
-plonkit_tpu/tpu/ntt.py.
+"""Radix-2 NTT over Fr on the K3 and K5 butterflies (csrc/ntt.cu), ported
+from plonkit_tpu/tpu/ntt.py.
 
-Constant-geometry (Pease) formulation, as there: every stage applies
+The forward transform is the constant-geometry (Pease) formulation of the
+JAX package: every stage applies
 
     u = y[:h] + y[h:]
     v = (y[:h] - y[h:]) * tw[t]        (DIF butterfly, one K3 launch)
     y = interleave(u, v)               (y'[2i] = u[i], y'[2i+1] = v[i])
 
 with stage twiddles tw[t][j] = w^(2^t * (j >> t)), then one bit-reversal
-gather.  In the [N, 8] row layout y[:h] and y[h:] are contiguous views, so
-a stage costs one launch plus the interleave copy; the bit reversal is an
-`index_select`, data movement as the JAX package leaves it to XLA.  Tables
-(domain-root powers, bit-reversal indices, coset powers) are built on the
-device through K1 and cached per size.
+gather.  As a matrix that is F = P S_{L-1} ... S_0 with S_t the interleave
+after the butterfly.  The DFT matrix is symmetric, so the inverse
+transform runs the transpose, F = S_0^T ... S_{L-1}^T P, over w^-1: one
+bit-reversal gather, then for t = L-1 down to 0
+
+    a = y[0::2], b = y[1::2]
+    y = concat(a + tw[t] * b, a - tw[t] * b)   (DIT butterfly, one K5 launch)
+
+and a last product by n^-1 (K1).  K5 reads the even and odd rows where
+they lie and writes the two halves of the next buffer, so an inverse stage
+needs no copy of the data besides its launch (both forms build a stage's
+twiddle rows); a forward stage also pays the interleave copy.  Every
+result is fully reduced, so both forms give the same rows.  The bit
+reversal is an `index_select`, data movement as the JAX package leaves it
+to XLA.  Tables (domain-root powers, bit-reversal indices, coset powers)
+are built on the device through K1 and cached per size.
 """
 
 from functools import lru_cache
@@ -22,9 +34,9 @@ import torch
 
 from ..fields import FR_GENERATOR, FR_MODULUS as R, fr_inv, get_domain_omega
 from . import build, field_kernels as fk, mont
-from .mont import FR, NLIMBS
+from .mont import FR, NLIMBS, FieldSpec
 
-launches = {"butterfly_dif": 0}
+launches = {"butterfly_dif": 0, "butterfly": 0}
 
 
 def butterfly_dif(lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
@@ -41,6 +53,45 @@ def butterfly_dif(lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
             v.data_ptr(), lo.shape[0], FR.kernel_id, fk.stream_ptr(lo)), "K3 butterfly_dif")
         launches["butterfly_dif"] += 1
     return u, v
+
+
+def _check_strided_rows(lo: torch.Tensor, hi: torch.Tensor, like: torch.Tensor) -> None:
+    """lo and hi: [n, 8] int32 views shaped and placed like `like`, rows a
+    whole number of rows apart (as y[0::2] and y[1::2] are), limbs dense."""
+    for t in (lo, hi):
+        if t.dtype != torch.int32 or t.shape != like.shape or t.device != like.device:
+            raise ValueError(f"expected {tuple(like.shape)} int32 on {like.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.stride() != lo.stride() or t.stride(1) != 1 or t.stride(0) % NLIMBS:
+            raise ValueError("lo and hi must share a row stride that is a multiple of a row")
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError("operand rows must be 16-byte aligned")
+
+
+def butterfly(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
+              out: torch.Tensor = None):
+    """K5, radix-2 DIT: t = w * hi; (lo + t, lo - t), each [N, 8].  lo and
+    hi may be row-strided views of one buffer (y[0::2], y[1::2]); w is
+    contiguous.  The two outputs are the halves of `out`, a contiguous
+    [2N, 8] buffer (a fresh one if it is not given)."""
+    fk.check_operands(w)
+    _check_strided_rows(lo, hi, w)
+    n = lo.shape[0]
+    if out is None:
+        out = torch.empty((2 * n, NLIMBS), dtype=torch.int32, device=lo.device)
+    fk.check_operands(out)
+    if out.shape[0] != 2 * n or out.device != lo.device:
+        raise ValueError(f"out must be [{2 * n}, {NLIMBS}] on {lo.device}")
+    if not lo.is_cuda:
+        out[:n], out[n:] = mont.butterfly(spec, lo, hi, w)
+    elif n:
+        lib = build.load("ntt")
+        build.check(lib.plonkit_butterfly(
+            lo.data_ptr(), hi.data_ptr(), w.data_ptr(), out.data_ptr(),
+            out[n:].data_ptr(), n, lo.stride(0) // NLIMBS, spec.kernel_id,
+            fk.stream_ptr(lo)), "K5 butterfly")
+        launches["butterfly"] += 1
+    return out[:n], out[n:]
 
 
 def powers(base: int, n: int, device) -> torch.Tensor:
@@ -78,28 +129,40 @@ def _tables(n: int, inverse: bool, device: str):
     return omega_pows, rev, n_inv
 
 
-def ntt(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def _stage_twiddles(omega_pows: torch.Tensor, t: int, half: int) -> torch.Tensor:
+    """tw[t][j] = w^(2^t * (j >> t)) for j < half, [half, 8]."""
+    return omega_pows[::1 << t][:half >> t].repeat_interleave(1 << t, dim=0)
+
+
+def ntt(values: torch.Tensor) -> torch.Tensor:
     """values: [n, 8] Montgomery rows in natural order -> evaluations on the
-    size-n domain (coefficients scaled by n^-1 if inverse)."""
+    size-n domain (Pease DIF on K3)."""
     n = values.shape[0]
     if n == 1:
         return values
-    omega_pows, rev, n_inv = _tables(n, inverse, str(values.device))
+    omega_pows, rev, _ = _tables(n, False, str(values.device))
     half = n // 2
     y = values.contiguous()
     for t in range(n.bit_length() - 1):
-        distinct = omega_pows[::1 << t][:half >> t]
-        tw = distinct.repeat_interleave(1 << t, dim=0)
-        u, v = butterfly_dif(y[:half], y[half:], tw)
+        u, v = butterfly_dif(y[:half], y[half:], _stage_twiddles(omega_pows, t, half))
         y = torch.stack([u, v], dim=1).reshape(n, NLIMBS)
-    y = y.index_select(0, rev)
-    if inverse:
-        y = fk.mul(FR, y, n_inv.expand(n, NLIMBS).contiguous())
-    return y
+    return y.index_select(0, rev)
 
 
 def intt(values: torch.Tensor) -> torch.Tensor:
-    return ntt(values, inverse=True)
+    """values: [n, 8] evaluations on the size-n domain -> coefficients
+    (the transposed Pease form on K5, then n^-1 by K1)."""
+    n = values.shape[0]
+    if n == 1:
+        return values
+    omega_pows, rev, n_inv = _tables(n, True, str(values.device))
+    half = n // 2
+    y = values.index_select(0, rev)
+    for t in reversed(range(n.bit_length() - 1)):
+        out = torch.empty_like(y)
+        butterfly(FR, y[0::2], y[1::2], _stage_twiddles(omega_pows, t, half), out)
+        y = out
+    return fk.mul(FR, y, n_inv.expand(n, NLIMBS).contiguous())
 
 
 @lru_cache(maxsize=8)

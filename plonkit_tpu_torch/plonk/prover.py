@@ -113,7 +113,8 @@ class ProverContext:
         self.setup = setup
         size = setup.domain_size
         num_g1 = getattr(crs, "num_g1", None) or len(crs.g1_bases)
-        assert num_g1 >= size, "SRS too small for circuit"
+        if num_g1 < size:
+            raise ValueError("SRS too small for circuit")
         self.msm_ctx = backend.msm_context_from_crs(crs, size, key=("srs", id(crs), size))
         # lagrange-form fast path (reference: `prove` vs `prove_by_steps`,
         # src/plonk.rs:140-170): value-form polynomials commit directly over
@@ -121,7 +122,8 @@ class ProverContext:
         self.lagrange_msm_ctx = None
         if crs_lagrange is not None:
             num_l = getattr(crs_lagrange, "num_g1", None) or len(crs_lagrange.g1_bases)
-            assert num_l >= size, "lagrange SRS too small for circuit"
+            if num_l < size:
+                raise ValueError("lagrange SRS too small for circuit")
             self.lagrange_msm_ctx = backend.msm_context_from_crs(
                 crs_lagrange, size, key=("srs-l", id(crs_lagrange), size))
         from ..backend import from_ints_dedup

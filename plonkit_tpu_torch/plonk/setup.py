@@ -115,7 +115,8 @@ def make_verification_key(setup: SetupPolynomials, crs: Crs, backend=None) -> Ve
         backend = TorchBackend()
     size = setup.domain_size
     num_g1 = getattr(crs, "num_g1", None) or len(crs.g1_bases)
-    assert num_g1 >= size, "SRS too small for circuit"
+    if num_g1 < size:
+        raise ValueError("SRS too small for circuit")
     msm_ctx = backend.msm_context_from_crs(crs, size, key=("srs", id(crs), size))
 
     from ..backend import from_ints_dedup

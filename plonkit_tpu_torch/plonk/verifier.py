@@ -55,7 +55,8 @@ def _derive_challenges(proof: Proof, vk: VerificationKey, transcript: str = "kec
 def batch_evaluate_lagrange_polys(poly_nums: List[int], domain_size: int, omega: int, at: int) -> List[int]:
     """L_i(at) for i in poly_nums; template.sol:379-435."""
     vanishing = (pow(at, domain_size, R) - 1) % R
-    assert vanishing != 0, "evaluation point in domain"
+    if vanishing == 0:
+        raise ValueError("evaluation point in domain")
     nums, dens = [], []
     for i in poly_nums:
         w_i = pow(omega, i, R)

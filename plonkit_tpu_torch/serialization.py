@@ -159,7 +159,8 @@ class VerificationKey:
     @property
     def domain_size(self) -> int:
         size = self.n + 1
-        assert size & (size - 1) == 0
+        if size & (size - 1):
+            raise ValueError(f"vk domain size {size} is not a power of two")
         return size
 
     def write(self, w):

@@ -54,6 +54,35 @@ def test_butterfly_dif_matches_plain(card):
     assert torch.equal(v, mont.mont_mul(mont.FR, w, mont.sub(mont.FR, lo, hi)))
 
 
+def test_mul_add_matches_plain(card):
+    for spec in (mont.FR, mont.FQ):
+        a, b, c = (rand_rows(spec, 4096, s).to(card) for s in (11, 12, 13))
+        before = fk.launches["mul_add"]
+        assert torch.equal(fk.mul_add(spec, a, b, c), mont.mul_add(spec, a, b, c))
+        assert fk.launches["mul_add"] == before + 1
+
+
+def test_butterfly_matches_plain(card):
+    """K5 on separate rows and on the even / odd rows of one buffer."""
+    for spec in (mont.FR, mont.FQ):
+        lo, hi, w = (rand_rows(spec, 2048, s).to(card) for s in (14, 15, 16))
+        buf = torch.stack([lo, hi], dim=1).reshape(4096, 8)
+        want = mont.butterfly(spec, lo, hi, w)
+        for a, b in ((lo, hi), (buf[0::2], buf[1::2])):
+            before = ntt.launches["butterfly"]
+            got = ntt.butterfly(spec, a, b, w)
+            assert all(torch.equal(g, x) for g, x in zip(got, want))
+            assert ntt.launches["butterfly"] == before + 1
+
+
+def test_dit_intt_on_the_card_matches_the_cpu(card):
+    for log_n in (1, 2, 5, 11, 14):
+        x = rand_rows(mont.FR, 1 << log_n, 17)[:1 << log_n]
+        before = ntt.launches["butterfly"]
+        assert torch.equal(ntt.intt(x.to(card)).cpu(), ntt.intt(x))
+        assert ntt.launches["butterfly"] == before + log_n
+
+
 def test_transforms_on_the_card_match_the_cpu(card):
     x = rand_rows(mont.FR, 4096, 6)
     for fn in (ntt.ntt, ntt.intt, ntt.coset_ntt, ntt.coset_intt,

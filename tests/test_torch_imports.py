@@ -31,6 +31,9 @@ names = [m.name for m in pkgutil.walk_packages(plonkit_tpu_torch.__path__,
                                                "plonkit_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = {"plonkit_tpu_torch.cli", "plonkit_tpu_torch.__main__", "plonkit_tpu_torch.solidity",
+           "plonkit_tpu_torch.frontend.witness"} - set(names)
+assert not missing, missing
 import chip_smoke
 assert sys.modules["jax"] is None
 leaked = [k for k in sys.modules if k == "plonkit_tpu" or k.startswith("plonkit_tpu.")]
