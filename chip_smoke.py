@@ -21,20 +21,26 @@ Phases, each printing a JSON line with its wall seconds:
    segments of one MSM of 2^20 random scalars over the SRS bases (the main
    path's shape) and on the sorted window-0 entries of 2^16 of them, both
    with a planted bucket of more than four segments; K7 padd at 2^20 lanes with
-   planted P + P, P + (-P), P + inf, inf + Q and inf + inf lanes; K8
-   combine on 22 random Jacobian window totals (c = 12);
+   planted P + P, P + (-P), P + inf, inf + Q and inf + inf lanes; K7r
+   segment_fold on the first fold level of that MSM's segment sums (timed),
+   and on every level of the fold of 2^20 0/1 scalars (~2^19 entries in
+   one bucket); K7w window_sums on the first level of that MSM's 22 x 4096
+   bucket table (timed), and on every level; K8 combine on 22 random
+   Jacobian window totals (c = 12);
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
    affine points must be equal;
 5. cross-check: a 2^10-domain synthetic prove on the card, its commitments
-   on the card through K6-K8 (launch counts read from that prove), gives
-   vk.bin and proof.bin bytes identical to the same prove on the CPU (plain
-   versions, commitments in the host Pippenger);
+   on the card through the MSM kernels (launch counts read from that
+   prove), gives vk.bin and proof.bin bytes identical to the same prove on
+   the CPU (plain versions, commitments in the host Pippenger);
 6. main path at a 2^20 domain: the synthetic multiplication chain,
    SetupForProver, make_verification_key, prove, verify, through the entry
    points a user calls, commitments on the card ("msm": "device"), with the
-   launch count of every kernel read from that run alone.  The proof must
+   launch count of every kernel read from that run alone, and the launches
+   of the bucket reduction (K7r, K7w, K7) per commitment, at most 8.  The
+   proof must
    verify and a tampered copy must not.  The same setup then makes vk.bin
    and proof.bin again with every commitment in the host Pippenger (a
    TorchBackend subclass defined here): the bytes must be identical.  A
@@ -90,6 +96,7 @@ INT32_MUL_PER_S = 67e12 / 4
 MONT_MUL_OPS = 2 * (64 + 64) + 8
 POINT_BYTES = 3 * 32                       # a Jacobian point, [3, 8] words
 MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # products of madd, add, double
+REDUCTION_LAUNCHES_MAX = 8                 # K7r + K7w + K7 per commitment
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit of phase 7
 SOURCES = {
@@ -102,6 +109,8 @@ SOURCES = {
     "K5 butterfly": ("plonkit_tpu_torch/csrc/ntt.cu", "plonkit_tpu/tpu/pallas_kernels.py:165"),
     "K6 bucket_sweep": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:166"),
     "K7 padd": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:213"),
+    "K7r segment_fold": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:238"),
+    "K7w window_sums": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm.py:304"),
     "K8 combine": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:271"),
 }
 
@@ -219,6 +228,10 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def _mismatches(got, want) -> int:
+    return sum(int((g != w).any(dim=1).sum()) for g, w in zip(got, want))
+
+
 def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=True, **extra):
     """Run kernel and plain version, compare them, time both (the kernel
     over `reps` launches after a warm-up, the plain version on the call
@@ -232,7 +245,7 @@ def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=Tru
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
-    mism = sum(int((g != w).any(dim=1).sum()) for g, w in zip(got, want))
+    mism = _mismatches(got, want)
     err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
                   .abs().max()) for g, w in zip(got, want))
     bytes_s = bytes_moved / HBM_BYTES_PER_S
@@ -305,6 +318,56 @@ def _segments_of(ctx, rows: np.ndarray, window0: bool = False):
             int(seg_len.sum()), int((seg_len > 0).sum()))
 
 
+
+def _fold_all_levels(ctx, sums, seg_bucket) -> int:
+    """Every K7r level against its plain version on the card, each level
+    fed the kernel's output; the rows that differ."""
+    from plonkit_tpu_torch.gpu import msm_kernels as mk
+    bucket, bad = seg_bucket, 0
+    for level in range(ctx.fold_levels):
+        start, length, bucket = ctx._groups(bucket)
+        last = (bucket, ctx.num_windows << ctx.c) if level == ctx.fold_levels - 1 else ()
+        got = mk.segment_fold(sums, start, length, *last)
+        bad += _mismatches(got, mk.segment_fold_plain(sums, start, length, *last))
+        sums = got
+    return bad
+
+
+def _window_all_levels(ctx, table):
+    """Every K7w level against its plain version on the card: the rows that
+    differ, and the number of levels."""
+    from plonkit_tpu_torch.gpu import msm_kernels as mk
+    from plonkit_tpu_torch.gpu.msm import WINDOW_CHUNK
+    k, t, p1, p2, bad, levels = 1 << ctx.c, table, None, None, 0, 0
+    while k > 1:
+        levels += 1
+        got = mk.window_sums(t, p1, p2, k, WINDOW_CHUNK)
+        want = mk.window_sums_plain(t, p1, p2, k, WINDOW_CHUNK)
+        bad += sum(_mismatches(g, w) for g, w in zip(got, want) if g is not None)
+        bad += sum((g is None) != (w is None) for g, w in zip(got, want))
+        t, p1, p2 = got[0], got[1], got[2]
+        k = -(-k // WINDOW_CHUNK)
+    return bad, levels
+
+
+def _weighted_walk_ops(finite, chunk: int) -> int:
+    """Point adds with both operands finite, and doublings of a finite sum,
+    that K7w's weighted walk makes over chunks whose items are finite where
+    `finite` ([chunks, chunk] bool) says: 32-bit multiplies."""
+    r = finite.new_zeros(finite.shape[0])
+    a = r.clone()
+    adds = 0
+    for i in range(chunk - 1, -1, -1):
+        f = finite[:, i]
+        adds += int((r & f).sum())
+        r = r | f
+        if i:
+            adds += int((a & r).sum())
+            a = a | r
+    dbls = int(r.sum()) * (chunk.bit_length() - 1)
+    return (adds * ADD_MULS + dbls * DBL_MULS) * MONT_MUL_OPS
+
+
 def _msm_rows(ctx) -> list:
     """K6, K7, K8 on the card against their plain versions on the card."""
     import torch
@@ -324,7 +387,7 @@ def _msm_rows(ctx) -> list:
     w0 = _segments_of(ctx, rows[:1 << SWEEP_LOG2], window0=True)
     w0_got = mk.bucket_sweep(ctx.table, *w0[:3])
     w0_want = mk.bucket_sweep_plain(ctx.table, *w0[:3])
-    w0_mism = sum(int((g != w).any(dim=1).sum()) for g, w in zip(w0_got, w0_want))
+    w0_mism = _mismatches(w0_got, w0_want)
     w0_hot = int((w0[3] == 7).sum())
     if w0_hot <= 4:
         raise AssertionError(f"planted bucket has {w0_hot} segments in the 2^16 window")
@@ -361,6 +424,49 @@ def _msm_rows(ctx) -> list:
               ((n - 50) * ADD_MULS + 10 * (8 + DBL_MULS) + 10 * 8) * MONT_MUL_OPS, 20,
               warm_plain=False)
 
+    # K7r: the first fold level over the uniform MSM's segment sums, then
+    # every level of the fold of 2^20 0/1 scalars (2^19 entries, 2^14
+    # segments in one bucket: a chain of 32 adds per thread at each level)
+    sums = mk.bucket_sweep(ctx.table, idx, seg_start, seg_len)
+    start, length, _ = ctx._groups(seg_bucket)
+    groups = int((length > 0).sum())
+    skew = _segments_of(ctx, FR.to_limbs_np([0, 1])[rng.integers(0, 2, ctx.n)])
+    skew_sums = mk.bucket_sweep(ctx.table, *skew[:3])
+    skew_mism = _fold_all_levels(ctx, skew_sums, skew[3])
+    all_mism = _fold_all_levels(ctx, sums, seg_bucket)
+    k7r = _row("K7r segment_fold", lambda: mk.segment_fold(sums, start, length),
+               lambda: mk.segment_fold_plain(sums, start, length), segs,
+               segs * POINT_BYTES + start.shape[0] * (16 + POINT_BYTES),
+               (segs - groups) * ADD_MULS * MONT_MUL_OPS, 20, warm_plain=False,
+               levels=ctx.fold_levels, groups=groups, group_width=ctx.group,
+               all_levels_mismatches=all_mism,
+               zero_one={"segments": skew[5], "hot_bucket_segments": int((skew[3] == 1).sum()),
+                         "levels": ctx.fold_levels, "mismatches": skew_mism},
+               note=f"level 1 of {ctx.fold_levels}; a thread is a chain of at most "
+                    f"{ctx.group} dependent adds")
+    k7r["mismatches"] += all_mism + skew_mism
+
+    # K7w: the first level over the uniform MSM's 22 x 4096 bucket table,
+    # then every level
+    from plonkit_tpu_torch.gpu.msm import WINDOW_CHUNK
+    table = ctx._bucket_table(sums, seg_bucket)
+    rows_in = table[0].shape[0]
+    chunks = rows_in // WINDOW_CHUNK
+    finite = (table[2] != 0).any(dim=1).reshape(chunks, WINDOW_CHUNK)
+    win_mism, win_levels = _window_all_levels(ctx, table)
+    k7w = _row("K7w window_sums",
+               lambda: sum(mk.window_sums(table, None, None, 1 << ctx.c, WINDOW_CHUNK)[:2], ()),
+               lambda: sum(mk.window_sums_plain(table, None, None, 1 << ctx.c,
+                                                WINDOW_CHUNK)[:2], ()),
+               rows_in, (rows_in + 2 * chunks) * POINT_BYTES,
+               _weighted_walk_ops(finite, WINDOW_CHUNK), 20, warm_plain=False,
+               chunk=WINDOW_CHUNK, nonempty_buckets=int(finite.sum()),
+               all_levels_mismatches=win_mism, levels=win_levels,
+               note=f"level 1 of {win_levels}; a thread is a chain of {2 * WINDOW_CHUNK - 1} "
+                    f"dependent adds and {WINDOW_CHUNK.bit_length() - 1} doublings: bound by "
+                    "latency at the upper levels, not by the bytes or operations counted here")
+    k7w["mismatches"] += win_mism
+
     # K8: 22 random window totals, c = 12
     w = tuple(a[n // 2:n // 2 + ctx.num_windows].contiguous() for a in p)
     doublings = ctx.c * (ctx.num_windows - 1)
@@ -369,7 +475,7 @@ def _msm_rows(ctx) -> list:
               (doublings * DBL_MULS + (ctx.num_windows - 1) * ADD_MULS) * MONT_MUL_OPS, 20,
               warm_plain=False, note="one thread, ~250 dependent point operations: bound by latency, "
                    "not by the bytes or operations counted here")
-    return [k6, k7, k8]
+    return [k6, k7, k7r, k7w, k8]
 
 
 def phase_kernels(ctx) -> list:
@@ -502,7 +608,12 @@ def phase_main(key: str):
                 "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
                 "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
                 "K6 bucket_sweep": mk.launches["bucket_sweep"], "K7 padd": mk.launches["padd"],
+                "K7r segment_fold": mk.launches["segment_fold"],
+                "K7w window_sums": mk.launches["window_sums"],
                 "K8 combine": mk.launches["combine"]}
+    commitments = mk.launches["bucket_sweep"]
+    per_commitment = (mk.launches["segment_fold"] + mk.launches["window_sums"]
+                      + mk.launches["padd"]) / max(1, commitments)
     stages = dict(profiling.last_timings)
     host_msm = stages.get("host msm", 0.0)
 
@@ -530,6 +641,7 @@ def phase_main(key: str):
                     "prove": round(stages.get("msm", 0.0) - msm_vk, 3)},
           "host_msm_s": round(host_msm, 3),
           "launches": launches,
+          "reduction_launches_per_commitment": per_commitment,
           "total_s": round(time.perf_counter() - t_all, 3)})
     if not ok or not rejected:
         raise AssertionError(f"verify: proof {ok}, tampered rejected {rejected}")
@@ -537,6 +649,9 @@ def phase_main(key: str):
         raise AssertionError(f"device and host commitments give other bytes: {same}")
     if host_msm:
         raise AssertionError("a commitment of the main path ran on the host")
+    if per_commitment > REDUCTION_LAUNCHES_MAX:
+        raise AssertionError(f"{per_commitment} reduction launches a commitment, "
+                             f"more than {REDUCTION_LAUNCHES_MAX}")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")

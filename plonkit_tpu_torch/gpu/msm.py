@@ -13,15 +13,23 @@ windows:
    SEGMENT entries (cumulative sums and binary searches: data movement,
    no host synchronisation);
 5. K6 (bucket_sweep) sums each segment's bases;
-6. K7 (padd) rounds fold a bucket's segment sums into its sum S_k, pairwise
-   by rank within the bucket, and the sums are placed in a [W * 2^c] table;
-7. K7 rounds compute sum_k k * S_k for all windows at once, as
-   `_reduce_weighted`: inclusive suffix sums, column 0 cleared, tree total;
+6. K7r (segment_fold) folds a bucket's segment sums into its sum S_k in
+   `fold_levels` levels: each level cuts every bucket's run of partial sums
+   into groups of at most `group` (as step 4 cuts entries) and sums each
+   group in order; the last level writes S_k to row window * 2^c + digit of
+   a [W * 2^c] table whose other rows are infinity.  The level count,
+   ceil(log_group(ceil(n / SEGMENT))), is fixed by n, so no level waits for
+   the host to size it;
+7. K7w (window_sums) computes sum_k k * S_k for all windows at once in
+   levels of chunk walks over WINDOW_CHUNK items (the weighted chain of
+   chunk totals goes up a level, the plain sum of the chunks' weighted
+   parts beside it), and one K7 (padd) joins the two parts per window;
 8. K8 (combine) adds the windows by Horner;
 9. the one Jacobian point comes to the host and is made affine there.
 
-Each step 5-8 is one kernel on a CUDA tensor and its plain version on a CPU
-one (gpu/msm_kernels.py), so the same code runs the CPU tests.
+Steps 5-8 launch kernels on CUDA tensors and take their plain versions on
+CPU ones (gpu/msm_kernels.py), so the same code runs the CPU tests.  At 2^20
+points (c = 12, group 32) a commitment launches K7r 3, K7w 3 and K7 once.
 
 What the reference does for its TPU layout and this port does not take
 over:
@@ -42,12 +50,9 @@ reference packs 12 + 20 bits into a u32 and asserts c + 20 <= 32).
 
 Window width: c = clamp(bit_length(n) - 9, 4, 12), so c = 12 (W = 22, the
 reference's choice) at 2^20 points.  A larger c makes fewer mixed adds
-(n * W of them in K6) but 2^c buckets a window to reduce (about
-2 c * W * 2^c lanes of K7); at small n it keeps the reduction and the CPU
-tests cheap.
+(n * W of them in K6) but 2^c buckets a window to reduce (about 2 W * 2^c
+adds in K7w); at small n it keeps the reduction and the CPU tests cheap.
 """
-
-import math
 
 import torch
 
@@ -58,17 +63,14 @@ from . import msm_kernels as mk
 from .mont import FR, NLIMBS, to_tensor
 
 SEGMENT = 32                  # entries per K6 segment at most
+FOLD_GROUP = 32               # partial sums per K7r group at most
+WINDOW_CHUNK = 16             # items per K7w chunk
 SCALAR_BITS = 254
 _DROPPED = (1 << 63) - 1      # sort key of zero digits: above every bucket
 
 
 def window_bits(n: int) -> int:
     return max(4, min(12, n.bit_length() - 9))
-
-
-def _shift_down(a: torch.Tensor, d: int) -> torch.Tensor:
-    """out[i] = a[i + d], rows past the end zero."""
-    return torch.cat([a[d:], torch.zeros_like(a[:min(d, a.shape[0])])])
 
 
 def _run_starts(first: torch.Tensor, max_runs: int) -> torch.Tensor:
@@ -82,30 +84,22 @@ def _run_starts(first: torch.Tensor, max_runs: int) -> torch.Tensor:
     return starts[(count - 1).clamp(min=0)]
 
 
-def _fold(pts, shift: int, keep: torch.Tensor):
-    """pts[i] += pts[i + shift] where keep[i] (else the partner is infinity):
-    a shifted copy with Z masked, then one K7 launch."""
-    q = tuple(_shift_down(a, shift) for a in pts)
-    q = (q[0], q[1], torch.where(keep[:, None], q[2], torch.zeros_like(q[2])))
-    return mk.padd(pts, q)
-
-
 class MSMContext:
     """Device-resident bases for repeated MSMs over one SRS."""
 
-    def __init__(self, points, device="cuda", c: int = None):
+    def __init__(self, points, device="cuda", c: int = None, group: int = FOLD_GROUP):
         x, y, inf = ec.affine_from_host(list(points), device)
-        self._init(x, y, inf, c)
+        self._init(x, y, inf, c, group)
 
     @classmethod
     def from_device_affine(cls, x, y, inf, c: int = None) -> "MSMContext":
         """From [n, 8] Montgomery Fq coordinate rows and the [n] infinity
         mask, all on one device."""
         ctx = cls.__new__(cls)
-        ctx._init(x, y, inf, c)
+        ctx._init(x, y, inf, c, FOLD_GROUP)
         return ctx
 
-    def _init(self, x, y, inf, c):
+    def _init(self, x, y, inf, c, group):
         self.n = x.shape[0]
         self.device = x.device
         self.c = window_bits(self.n) if c is None else c
@@ -117,8 +111,14 @@ class MSMContext:
         # the packed key: bucket << idx_bits | index, below _DROPPED
         if buckets.bit_length() + self.idx_bits > 62:
             raise ValueError(f"c = {self.c} and {self.n} points do not fit one int64 sort key")
-        # a bucket holds at most n entries, so ceil(n / SEGMENT) segments
-        self.fold_rounds = max(0, math.ceil(math.log2(max(1, -(-self.n // SEGMENT)))))
+        if group < 2:
+            raise ValueError(f"fold group {group} < 2")
+        self.group = group
+        # a bucket holds at most n entries, so ceil(n / SEGMENT) segments,
+        # and after the last level at most one partial sum
+        self.fold_levels, reach = 1, group
+        while reach < -(-self.n // SEGMENT):
+            self.fold_levels, reach = self.fold_levels + 1, reach * group
 
     # -- steps 2-4: digits, sort, segments --------------------------------
 
@@ -172,50 +172,53 @@ class MSMContext:
 
     # -- steps 6-8 -----------------------------------------------------------
 
+    def _groups(self, bucket: torch.Tensor):
+        """Cut each bucket's run of partial sums into groups of at most
+        `group`, as _segments cuts entries.  bucket: [M] int64, sorted, with
+        the unused rows (-1) at the end.  Returns (start, length,
+        group_bucket), bounded as M / group + buckets, with unused groups
+        of length 0 and bucket -1 at the end."""
+        m = bucket.shape[0]
+        dev = bucket.device
+        valid = bucket >= 0
+        first = valid & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                                   bucket[1:] != bucket[:-1]])
+        buckets = self.num_windows << self.c
+        rank = torch.arange(m, device=dev) - _run_starts(first, buckets)
+        count = torch.cumsum(valid & (rank % self.group == 0), 0)
+        m_grp = min(m, -(-m // self.group) + buckets)
+        start = torch.searchsorted(count, torch.arange(1, m_grp + 1, device=dev))
+        end = torch.minimum(torch.cat([start[1:], start.new_full((1,), m)]), valid.sum())
+        length = (end - start).clamp(min=0)
+        group_bucket = torch.where(length > 0, bucket[start.clamp(max=m - 1)],
+                                   torch.full_like(start, -1))
+        return start.contiguous(), length.contiguous(), group_bucket
+
     def _bucket_table(self, sums, seg_bucket: torch.Tensor):
-        """Fold each bucket's segment sums into its first segment (K7 rounds
-        pairing ranks r and r + d for r a multiple of 2d), then place the
-        bucket sums at window * 2^c + digit of a [W * 2^c] table whose other
-        rows are infinity (all zeros)."""
-        m_seg = seg_bucket.shape[0]
-        dev = seg_bucket.device
-        j = torch.arange(m_seg, device=dev)
-        first = (seg_bucket >= 0) & torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                                               seg_bucket[1:] != seg_bucket[:-1]])
-        srank = j - _run_starts(first, self.num_windows << self.c)
-        for r in range(self.fold_rounds):
-            d = 1 << r
-            if d >= m_seg:
-                break
-            keep = (srank % (2 * d) == 0) & (seg_bucket >= 0) & \
-                (_shift_down(seg_bucket, d) == seg_bucket)
-            sums = _fold(sums, d, keep)
-        lanes = self.num_windows << self.c
-        dst = torch.where(first, seg_bucket, torch.full_like(seg_bucket, lanes))
-        table = []
-        for a in sums:
-            t = torch.zeros((lanes + 1, NLIMBS), dtype=torch.int32, device=dev)
-            t.index_copy_(0, dst, a)
-            table.append(t[:lanes])
-        return tuple(table)
+        """The segment sums folded into every bucket sum S_k by K7r levels,
+        placed at window * 2^c + digit of a [W * 2^c] table whose other rows
+        are infinity (all zeros)."""
+        bucket = seg_bucket
+        for _ in range(self.fold_levels - 1):
+            start, length, bucket = self._groups(bucket)
+            sums = mk.segment_fold(sums, start, length)
+        start, length, bucket = self._groups(bucket)
+        return mk.segment_fold(sums, start, length, bucket, self.num_windows << self.c)
 
     def _window_totals(self, buckets):
-        """sum_k k * S_k for every window (lanes w * 2^c + k): inclusive
-        suffix sums U_j = sum_{k >= j} S_k, column 0 cleared, then a tree
-        total, so column 0 ends with sum_{j >= 1} U_j = sum_k k * S_k."""
-        width = 1 << self.c
-        col = torch.arange(buckets[0].shape[0], device=buckets[0].device) % width
-        d = 1
-        while d < width:
-            buckets = _fold(buckets, d, col + d < width)
-            d *= 2
-        zero = (col == 0)[:, None]
-        buckets = tuple(torch.where(zero, torch.zeros_like(a), a) for a in buckets)
-        d = width // 2
-        while d >= 1:
-            buckets = _fold(buckets, d, col < d)
-            d //= 2
-        return tuple(a[::width].contiguous() for a in buckets)
+        """sum_k k * S_k for every window (rows w * 2^c + k): K7w levels
+        until one chunk is left per window, then K7 adds its weighted part A
+        and the carried plain part Q (infinity after a single level)."""
+        k, t, p1, p2 = 1 << self.c, buckets, None, None
+        while True:
+            t, a, q = mk.window_sums(t, p1, p2, k, WINDOW_CHUNK)
+            k = -(-k // WINDOW_CHUNK)
+            if k == 1:
+                break
+            p1, p2 = a, q
+        if q is None:
+            q = ec.infinity(self.num_windows, a[0].device)
+        return mk.padd(a, q)
 
     def _run(self, raw: torch.Tensor):
         """Steps 2-8 on [m, 8] canonical scalar rows: the MSM as one [1, 8]

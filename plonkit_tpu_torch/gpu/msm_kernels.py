@@ -1,6 +1,9 @@
-"""Wrappers of the MSM kernels K6 bucket_sweep, K7 padd and K8 combine
-(csrc/msm.cu), ported from plonkit_tpu/tpu/msm_pallas.py sweep_flat, padd
-and combine, each beside its plain PyTorch version.
+"""Wrappers of the MSM kernels K6 bucket_sweep, K7 padd, K7r segment_fold,
+K7w window_sums and K8 combine (csrc/msm.cu), each beside its plain PyTorch
+version.  K6, K7 and K8 are ported from plonkit_tpu/tpu/msm_pallas.py
+sweep_flat, padd and combine; K7r and K7w replace the rounds of padd that
+the reference's bucket fold (msm_pallas.py fold_round) and weighted
+reduction (tpu/msm.py _reduce_weighted) run.
 
 Points are Jacobian triples of [N, 8] int32 Montgomery Fq rows (gpu/ec.py).
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel on
@@ -14,7 +17,7 @@ from . import build, ec
 from .field_kernels import check_operands, stream_ptr
 from .mont import NLIMBS
 
-launches = {"bucket_sweep": 0, "padd": 0, "combine": 0}
+launches = {"bucket_sweep": 0, "padd": 0, "segment_fold": 0, "window_sums": 0, "combine": 0}
 
 
 def _check_vector(t: torch.Tensor, dtype, name: str) -> None:
@@ -97,6 +100,150 @@ def padd(p, q):
                                      stream_ptr(p[0])), "K7 padd")
         launches["padd"] += 1
     return out
+
+
+# -- K7r ---------------------------------------------------------------------
+
+def segment_fold_plain(pts, start, length, dst=None, rows=None):
+    """Group sums: out[t] = pts[start[t]] + ... + pts[start[t] + length[t]
+    - 1], accumulated in that order from infinity by the complete add (step
+    i adds to the groups longer than i, as each thread of the kernel does at
+    its step i).  With dst, group t goes to row dst[t] of a [rows] table of
+    infinities instead, and groups with dst[t] < 0 are dropped."""
+    m = start.shape[0]
+    dev = pts[0].device
+    acc = ec.infinity(m, dev)
+    for i in range(int(length.max()) if m else 0):
+        act = length > i
+        part = ec.add(tuple(a[act] for a in acc), tuple(p[start[act] + i] for p in pts))
+        acc = tuple(a.clone() for a in acc)
+        for a, s in zip(acc, part):
+            a[act] = s
+    if dst is None:
+        return acc
+    out = ec.infinity(rows, dev)
+    keep = dst >= 0
+    for o, a in zip(out, acc):
+        o[dst[keep]] = a[keep]
+    return out
+
+
+def segment_fold(pts, start, length, dst=None, rows=None):
+    """K7r.  pts: M0 Jacobian points; start, length: [M] int64 groups of
+    consecutive points (length 0 for none).  Returns the M group sums, or
+    with dst ([M] int64) a [rows] table holding group t at row dst[t] (rows
+    no group names are infinity; dst[t] < 0 drops group t).  That the groups
+    lie in pts and that dst names each row at most once is the caller's to
+    hold (gpu/msm.py builds them)."""
+    check_operands(*pts)
+    _check_vector(start, torch.int64, "start")
+    _check_vector(length, torch.int64, "length")
+    if start.shape != length.shape:
+        raise ValueError("start and length differ in length")
+    if dst is not None:
+        _check_vector(dst, torch.int64, "dst")
+        if dst.shape != start.shape or rows is None or rows < 0:
+            raise ValueError("dst needs the groups' length and a row count")
+    if len({t.device for t in (pts[0], start, length, dst) if t is not None}) != 1:
+        raise ValueError("operands on different devices")
+    if not pts[0].is_cuda:
+        return segment_fold_plain(pts, start, length, dst, rows)
+    m = start.shape[0]
+    dev = pts[0].device
+    if dst is None:
+        out = tuple(torch.empty((m, NLIMBS), dtype=torch.int32, device=dev) for _ in range(3))
+    else:
+        out = ec.infinity(rows, dev)
+    if m:
+        lib = build.load("msm")
+        build.check(lib.plonkit_segment_fold(
+            *(t.data_ptr() for t in (*pts, start, length)),
+            dst.data_ptr() if dst is not None else None,
+            *(o.data_ptr() for o in out), m, stream_ptr(pts[0])), "K7r segment_fold")
+        launches["segment_fold"] += 1
+    return out
+
+
+# -- K7w ---------------------------------------------------------------------
+
+def _chunk_columns(p, k_in: int, chunk: int):
+    """[W * k_in] points -> [W * k_out, chunk] per coordinate, each window's
+    items padded with infinity to k_out * chunk."""
+    w = p[0].shape[0] // k_in
+    k_out = -(-k_in // chunk)
+    out = []
+    for a in p:
+        pad = torch.zeros((w, k_out * chunk, NLIMBS), dtype=a.dtype, device=a.device)
+        pad[:, :k_in] = a.reshape(w, k_in, NLIMBS)
+        out.append(pad.reshape(w * k_out, chunk, NLIMBS))
+    return out
+
+
+def window_sums_plain(t, p1, p2, k_in: int, chunk: int):
+    """One level of the weighted sums, over each window's k_in items cut
+    into chunks of `chunk` (missing items are infinity).  For chunk j:
+    A_j = sum_i i * t_{j chunk + i} by the walk R += t_i, A += R for i =
+    chunk - 1 .. 1, then R += t_0; T_j = chunk * R (log2 chunk doublings);
+    Q_j = sum_i (p1_i + p2_i) in that order from infinity, or None when p1
+    and p2 are both None.  Returns (T, A, Q), [W * ceil(k_in / chunk)]
+    points each; adding infinity changes no limb, so the padded steps give
+    the kernel's values."""
+    cols = _chunk_columns(t, k_in, chunk)
+    n = cols[0].shape[0]
+    dev = t[0].device
+
+    def col(c3, i):
+        return tuple(c[:, i].contiguous() for c in c3)
+
+    r, a = ec.infinity(n, dev), ec.infinity(n, dev)
+    for i in range(chunk - 1, 0, -1):
+        r = ec.add(r, col(cols, i))
+        a = ec.add(a, r)
+    r = ec.add(r, col(cols, 0))
+    for _ in range(chunk.bit_length() - 1):
+        r = ec.double(r)
+    plains = [_chunk_columns(p, k_in, chunk) for p in (p1, p2) if p is not None]
+    q = None
+    if plains:
+        q = ec.infinity(n, dev)
+        for i in range(chunk):
+            for c3 in plains:
+                q = ec.add(q, col(c3, i))
+    return r, a, q
+
+
+def window_sums(t, p1, p2, k_in: int, chunk: int):
+    """K7w: one level of sum_k k * S_k over windows of k_in items each (see
+    window_sums_plain).  t: Jacobian [W * k_in]; p1, p2: the same shape or
+    None; chunk: a power of two >= 2."""
+    check_operands(*t)
+    for p in (p1, p2):
+        if p is not None:
+            check_operands(*t, *p)
+    n = t[0].shape[0]
+    if k_in < 1 or n % k_in or n == 0:
+        raise ValueError(f"window_sums: {n} items are not whole windows of {k_in}")
+    if chunk < 2 or chunk & (chunk - 1):
+        raise ValueError(f"window_sums: chunk {chunk} is not a power of two >= 2")
+    if not t[0].is_cuda:
+        return window_sums_plain(t, p1, p2, k_in, chunk)
+    chunks = n // k_in * -(-k_in // chunk)
+    dev = t[0].device
+
+    def fresh():
+        return tuple(torch.empty((chunks, NLIMBS), dtype=torch.int32, device=dev)
+                     for _ in range(3))
+
+    out_t, out_a = fresh(), fresh()
+    out_q = fresh() if p1 is not None or p2 is not None else None
+    ptrs = [x.data_ptr() for x in t]
+    for p in (p1, p2, out_t, out_a, out_q):
+        ptrs += [None] * 3 if p is None else [x.data_ptr() for x in p]
+    lib = build.load("msm")
+    build.check(lib.plonkit_window_sums(*ptrs, chunks, k_in, chunk, chunk.bit_length() - 1,
+                                       stream_ptr(t[0])), "K7w window_sums")
+    launches["window_sums"] += 1
+    return out_t, out_a, out_q
 
 
 # -- K8 ----------------------------------------------------------------------

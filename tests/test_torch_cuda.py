@@ -16,7 +16,7 @@ from plonkit_tpu_torch.backend import HostMSMContext
 from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
 from plonkit_tpu_torch.gpu import ec, field_kernels as fk
 from plonkit_tpu_torch.gpu import mont, msm_kernels as mk, ntt
-from plonkit_tpu_torch.gpu.msm import MSMContext
+from plonkit_tpu_torch.gpu.msm import WINDOW_CHUNK, MSMContext
 from plonkit_tpu_torch.srs import dev_srs_g1
 
 pytestmark = pytest.mark.cuda
@@ -116,20 +116,111 @@ def _msm_inputs(card, n, seed):
     return ctx, scalars, raw
 
 
+def _equal(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _fold_levels_match(ctx, sums, seg_bucket):
+    """Every K7r level against its plain version, each level fed the
+    kernel's output; returns the bucket table."""
+    bucket = seg_bucket
+    for level in range(ctx.fold_levels):
+        start, length, bucket = ctx._groups(bucket)
+        last = (bucket, ctx.num_windows << ctx.c) if level == ctx.fold_levels - 1 else ()
+        got = mk.segment_fold(sums, start, length, *last)
+        assert _equal(got, mk.segment_fold_plain(sums, start, length, *last)), level
+        sums = got
+    return sums
+
+
+def _window_levels_match(ctx, table):
+    """Every K7w level against its plain version; returns the last level's
+    (A, Q)."""
+    k, t, p1, p2 = 1 << ctx.c, table, None, None
+    while True:
+        got = mk.window_sums(t, p1, p2, k, WINDOW_CHUNK)
+        want = mk.window_sums_plain(t, p1, p2, k, WINDOW_CHUNK)
+        assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+        assert (got[2] is None and want[2] is None) or _equal(got[2], want[2])
+        t, a, q = got
+        k = -(-k // WINDOW_CHUNK)
+        if k == 1:
+            return a, q
+        p1, p2 = a, q
+
+
 def test_msm_kernels_match_plain(card):
     ctx, _, raw = _msm_inputs(card, 1 << 12, 20)
     idx, seg_start, seg_len, seg_bucket = ctx._segments(ctx._sorted_keys(raw), 1 << 12)
     before = dict(mk.launches)
     sums = mk.bucket_sweep(ctx.table, idx, seg_start, seg_len)
-    assert all(torch.equal(a, b) for a, b in zip(
-        sums, mk.bucket_sweep_plain(ctx.table, idx, seg_start, seg_len)))
-    table = ctx._bucket_table(sums, seg_bucket)
+    assert _equal(sums, mk.bucket_sweep_plain(ctx.table, idx, seg_start, seg_len))
+    table = _fold_levels_match(ctx, sums, seg_bucket)
+    assert _equal(table, ctx._bucket_table(sums, seg_bucket))
     q = tuple(a.roll(1, 0).contiguous() for a in table)
-    assert all(torch.equal(a, b) for a, b in zip(mk.padd(table, q), mk.padd_plain(table, q)))
+    assert _equal(mk.padd(table, q), mk.padd_plain(table, q))
+    _window_levels_match(ctx, table)
     totals = ctx._window_totals(table)
-    assert all(torch.equal(a, b) for a, b in zip(mk.combine(totals, ctx.c),
-                                                 mk.combine_plain(totals, ctx.c)))
+    assert _equal(mk.combine(totals, ctx.c), mk.combine_plain(totals, ctx.c))
     assert all(mk.launches[k] > before[k] for k in mk.launches)
+
+
+@pytest.mark.parametrize("skew", ["uniform", "zero_one"])
+def test_segment_fold_levels_match_plain(card, skew):
+    """Fold groups of 4 at 2^14: five K7r levels; the 0/1 scalars put
+    ~2^13 entries (~256 segments) in one bucket of every window."""
+    n = 1 << 14
+    ctx = MSMContext(dev_srs_g1(n, 42), device=card, group=4)
+    assert ctx.fold_levels == 5
+    rng = np.random.default_rng(22)
+    if skew == "uniform":
+        scalars = [int.from_bytes(rng.bytes(32), "little") % mont.FR.p for _ in range(n)]
+    else:
+        scalars = [int(b) for b in rng.integers(0, 2, n)]
+    raw = mont.to_tensor(mont.FR.to_limbs_np(scalars), card)
+    idx, seg_start, seg_len, seg_bucket = ctx._segments(ctx._sorted_keys(raw), n)
+    sums = mk.bucket_sweep(ctx.table, idx, seg_start, seg_len)
+    table = _fold_levels_match(ctx, sums, seg_bucket)
+    host = HostMSMContext.from_points(dev_srs_g1(n, 42))
+    want = host.msm_rows(mont.FR.to_limbs_np(scalars).view(np.uint8))
+    totals = ctx._window_totals(table)
+    assert ec.to_affine_host(mk.combine(totals, ctx.c))[0] == want
+
+
+def test_window_sums_levels_match_plain(card):
+    """The three K7w levels of c = 12 on the bucket table of 2^12 uniform
+    scalars (about a third of the rows empty)."""
+    _, _, raw = _msm_inputs(card, 1 << 12, 23)
+    ctx = MSMContext(dev_srs_g1(1 << 12, 42), device=card, c=12)
+    idx, seg_start, seg_len, seg_bucket = ctx._segments(ctx._sorted_keys(raw), 1 << 12)
+    table = ctx._bucket_table(mk.bucket_sweep(ctx.table, idx, seg_start, seg_len), seg_bucket)
+    a, q = _window_levels_match(ctx, table)
+    assert _equal(ctx._window_totals(table), mk.padd_plain(a, q))
+
+
+def test_reduction_degenerate_inputs_match_plain(card):
+    """K7r and K7w on P + P, P + (-P), infinity partners and empty groups."""
+    pts = dev_srs_g1(4, 42)
+    x, y, inf = ec.affine_from_host(pts, card)
+    p = ec.jacobian_from_affine((x, y, inf))
+    z = ec.infinity(4, card)
+    # rows: P0 P0 -P0 inf P1 inf P2 -P2 P3 P3 P3 inf
+    order = [(p, 0), (p, 0), (ec.neg(p), 0), (z, 0), (p, 1), (z, 1), (p, 2), (ec.neg(p), 2),
+             (p, 3), (p, 3), (p, 3), (z, 3)]
+    rows = tuple(torch.cat([src[i][j:j + 1] for src, j in order]).contiguous() for i in range(3))
+    i64 = dict(dtype=torch.int64, device=card)
+    start = torch.tensor([0, 1, 3, 4, 6, 8, 12, 11], **i64)
+    length = torch.tensor([2, 2, 2, 1, 2, 3, 0, 1], **i64)
+    dst = torch.tensor([5, 0, 1, 2, 3, 4, -1, 6], **i64)
+    for extra in ((), (dst, 9)):
+        assert _equal(mk.segment_fold(rows, start, length, *extra),
+                      mk.segment_fold_plain(rows, start, length, *extra))
+    for k_in, chunk in ((12, 4), (6, 4), (4, 2), (3, 16)):
+        for p1, p2 in ((None, None), (rows, None), (None, rows), (rows, rows)):
+            got = mk.window_sums(rows, p1, p2, k_in, chunk)
+            want = mk.window_sums_plain(rows, p1, p2, k_in, chunk)
+            assert _equal(got[0], want[0]) and _equal(got[1], want[1])
+            assert (got[2] is None and want[2] is None) or _equal(got[2], want[2])
 
 
 def test_padd_degenerate_lanes_match_plain(card):

@@ -1,11 +1,13 @@
 """The port's MSM (plonkit_tpu_torch/gpu/msm.py over the plain versions of
-K6-K8 in gpu/msm_kernels.py) on the CPU, against the JAX package's python
+K6, K7, K7r, K7w and K8 in gpu/msm_kernels.py) on the CPU, against the JAX package's python
 Pippenger (plonkit_tpu.curve.g1_msm_host) and the port's native one
 (native.bn254_g1_msm), on the same 2^10 bases of the tau = 42 dev SRS and
 the same seeded scalars.  Points are compared as affine host points:
 exactly.  Each scalar set stresses one part of the design: zero digits
 that drop out, one hot bucket per window (0/1, constant, p - 1), a bucket
-spanning more than four K6 segments, and fewer scalars than bases."""
+spanning more than four K6 segments, and fewer scalars than bases.  Narrow
+fold groups make the K7r fold run three levels and more at 2^10, and the
+K7w window sums are held against host sums at c = 4, 5 and 12."""
 
 import numpy as np
 import pytest
@@ -13,11 +15,11 @@ import torch
 
 from plonkit_tpu.curve import g1_msm_host as ref_msm
 from plonkit_tpu_torch import native
-from plonkit_tpu_torch.curve import G1_GEN, g1_add, g1_double, g1_mul
+from plonkit_tpu_torch.curve import G1_GEN, g1_add, g1_double, g1_mul, g1_neg
 from plonkit_tpu_torch.fields import FR_MODULUS as R
 from plonkit_tpu_torch.gpu import ec, msm_kernels as mk
 from plonkit_tpu_torch.gpu.mont import FQ, FR, to_tensor
-from plonkit_tpu_torch.gpu.msm import SEGMENT, MSMContext, window_bits
+from plonkit_tpu_torch.gpu.msm import SEGMENT, WINDOW_CHUNK, MSMContext, window_bits
 from plonkit_tpu_torch.srs import dev_srs_g1
 
 N = 1 << 10
@@ -143,6 +145,129 @@ def test_bucket_table_and_weighted_reduction(bases, ctx):
         assert totals[w] == expect
 
 
+@pytest.mark.parametrize("group,name", [(2, "long_bucket"), (2, "zero_one"), (3, "fewer"),
+                                        (4, "single")])
+def test_msm_with_narrow_fold_groups(bases, group, name):
+    """Fold groups of 2-4 partial sums: the K7r fold runs 3-5 levels at
+    2^10, and buckets of one segment copy through every level."""
+    ctx = MSMContext(bases, device="cpu", group=group)
+    assert ctx.fold_levels == {2: 5, 3: 4, 4: 3}[group]
+    scalars = scalar_set(name)
+    got = ctx.msm(scalars)
+    assert got == native_msm(bases, scalars)
+    assert got == ref_msm(bases[:len(scalars)], scalars)
+
+
+def test_bucket_table_takes_every_fold_level(bases):
+    """With groups of 2 the planted bucket's 6 segment sums need three of
+    the five levels; every bucket sum S_k still equals the host's."""
+    ctx = MSMContext(bases, device="cpu", group=2)
+    rng = np.random.default_rng(4)
+    scalars = [int(v) for v in rng.integers(0, 1 << 8, N)]             # windows 0-1
+    scalars[:HOT] = [9] * HOT
+    raw = to_tensor(FR.to_limbs_np(scalars), "cpu")
+    idx, seg_start, seg_len, seg_bucket = ctx._segments(ctx._sorted_keys(raw), N)
+    assert int((seg_bucket == 9).sum()) > 4
+    table = ctx._bucket_table(mk.bucket_sweep(ctx.table, idx, seg_start, seg_len), seg_bucket)
+    width = 1 << ctx.c
+    want = {}
+    for p, s in zip(bases, scalars):
+        for w in range(2):
+            d = (s >> (ctx.c * w)) & (width - 1)
+            if d:
+                want[w * width + d] = g1_add(want.get(w * width + d), p)
+    got = ec.to_affine_host(table)
+    assert {k: v for k, v in enumerate(got) if v is not None} == want
+
+
+def _host_table(rng, c, fill):
+    """A bucket table for every window of width c, its rows drawn from
+    +-v G for 24 random v (so P + P and P + (-P) meet in the chains), and
+    the scalar of each row.  fill "every": no empty row; "sparse": a third
+    of the rows empty, and an empty chunk in each window at K7w's first
+    level and, at c = 12, at its second."""
+    ctx = MSMContext([G1_GEN] * 16, device="cpu", c=c)
+    rows = ctx.num_windows << c
+    vals = [int(v) for v in rng.integers(1, 1 << 62, 24)]
+    vals += [R - v for v in vals]
+    pick = rng.integers(0, len(vals), rows)
+    scal = [vals[i] for i in pick]
+    if fill == "sparse":
+        width = 1 << c
+        for r in range(rows):
+            k = r % width
+            if rng.random() < 1 / 3 or WINDOW_CHUNK <= k < 2 * WINDOW_CHUNK or \
+                    (c >= 9 and WINDOW_CHUNK ** 2 <= k < 2 * WINDOW_CHUNK ** 2):
+                scal[r] = 0
+    pts = {v: g1_mul(G1_GEN, v) for v in set(vals)}
+    aff = ec.affine_from_host([pts[v] if v else None for v in scal], "cpu")
+    return ctx, ec.jacobian_from_affine(aff), scal
+
+
+@pytest.mark.parametrize("c,fill", [(4, "every"), (4, "sparse"), (5, "sparse"),
+                                    (12, "every"), (12, "sparse")])
+def test_window_sums_against_host(c, fill):
+    """sum_k k * S_k per window through the K7w levels and the closing K7,
+    against (sum_k k * s_k) G for the rows' scalars s_k."""
+    rng = np.random.default_rng(40 + c)
+    ctx, table, scal = _host_table(rng, c, fill)
+    width = 1 << c
+    got = ec.to_affine_host(ctx._window_totals(table))
+    for w in range(ctx.num_windows):
+        e = sum(k * scal[w * width + k] for k in range(width)) % R
+        assert got[w] == (g1_mul(G1_GEN, e) if e else None)
+
+
+def _host_pts(rng, n):
+    """n host points, a few of them infinity, equal or opposite."""
+    pts = [g1_mul(G1_GEN, int(v)) for v in rng.integers(1, 1 << 62, n)]
+    pts[1], pts[2], pts[4] = pts[0], g1_neg(pts[3]), None
+    return pts
+
+
+def _host_sum(pts):
+    acc = None
+    for p in pts:
+        acc = g1_add(acc, p)
+    return acc
+
+
+def test_segment_fold_plain_matches_host_loop():
+    rng = np.random.default_rng(8)
+    pts = _host_pts(rng, 12)
+    jac = ec.jacobian_from_affine(ec.affine_from_host(pts, "cpu"))
+    start = torch.tensor([0, 2, 3, 7, 12], dtype=torch.int64)
+    length = torch.tensor([2, 1, 4, 5, 0], dtype=torch.int64)
+    want = [_host_sum(pts[s:s + n]) for s, n in zip(start.tolist(), length.tolist())]
+    assert ec.to_affine_host(mk.segment_fold_plain(jac, start, length)) == want
+    dst = torch.tensor([3, 0, -1, 6, -1], dtype=torch.int64)
+    got = ec.to_affine_host(mk.segment_fold_plain(jac, start, length, dst, 8))
+    assert got == [want[1], None, None, want[0], None, None, want[3], None]
+
+
+def test_window_sums_plain_matches_host_loop():
+    """One K7w level: 2 windows of 6 items in chunks of 4 (the second
+    chunk of each window partial)."""
+    rng = np.random.default_rng(9)
+    k_in, chunk = 6, 4
+    pts = [_host_pts(rng, 2 * k_in) for _ in range(3)]
+    jac = [ec.jacobian_from_affine(ec.affine_from_host(p, "cpu")) for p in pts]
+    t, a, q = (ec.to_affine_host(x) for x in mk.window_sums_plain(*jac, k_in, chunk))
+    _, _, q1 = mk.window_sums_plain(jac[0], jac[1], None, k_in, chunk)
+    assert mk.window_sums_plain(jac[0], None, None, k_in, chunk)[2] is None
+    for w in range(2):
+        for j in range(2):
+            lo = w * k_in + j * chunk
+            rows = range(lo, min(lo + chunk, (w + 1) * k_in))
+            c = w * 2 + j
+            total = _host_sum([pts[0][r] for r in rows])
+            assert t[c] == (g1_mul(total, chunk) if total else None)
+            assert a[c] == _host_sum([g1_mul(pts[0][r], r - lo) for r in rows])
+            assert q[c] == _host_sum([pts[1][r] for r in rows] + [pts[2][r] for r in rows])
+            assert ec.to_affine_host(tuple(x[c:c + 1] for x in q1))[0] == \
+                _host_sum([pts[1][r] for r in rows])
+
+
 def test_combine_matches_host_horner():
     rng = np.random.default_rng(5)
     num, c = 6, 4
@@ -168,7 +293,15 @@ def test_wrappers_take_the_plain_version_on_the_cpu(ctx):
     empty = torch.zeros(0, dtype=torch.int64)
     assert all(a.shape == (0, 8) for a in mk.bucket_sweep(
         ctx.table, torch.zeros(0, dtype=torch.int32), empty, empty))
+    assert all(a.shape == (0, 8) for a in mk.segment_fold(p, empty, empty))
+    assert all(bool((a == 0).all()) for a in mk.window_sums(p, None, p, 2, 2)[1])
     assert mk.launches == before
+    with pytest.raises(ValueError):
+        mk.segment_fold(p, empty, empty, dst=empty)
+    with pytest.raises(ValueError):
+        mk.window_sums(p, None, None, 3, 2)
+    with pytest.raises(ValueError):
+        mk.window_sums(p, None, None, 2, 3)
     with pytest.raises(ValueError):
         mk.bucket_sweep(ctx.table, torch.zeros(3, dtype=torch.int64), empty, empty)
     with pytest.raises(ValueError):
