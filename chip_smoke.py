@@ -6,8 +6,11 @@
 Phases, each printing a JSON line with its wall seconds:
 
 1. build: the CUDA kernels (csrc/*.cu, one nvcc per source, all at once) and
-   the native host library (native/bn254.cpp), then the card's name and
-   power limit as nvidia-smi reports them;
+   the native host library (native/bn254.cpp), with each kernel's
+   registers, shared memory, stack and spills from ptxas and the
+   instructions of K1 (one Montgomery product), K6 and K8 from the CUDA
+   toolkit's cuobjdump, then the card's name and power limit as nvidia-smi
+   reports them;
 2. srs: the tau = 42 dev SRS of 2^20 points, made by the CLI's
    `setup -p 20` (srs.py, serial python); its first two points must be G
    and 42 G;
@@ -25,12 +28,13 @@ Phases, each printing a JSON line with its wall seconds:
    segment_fold on the first fold level of that MSM's segment sums (timed),
    and on every level of the fold of 2^20 0/1 scalars (~2^19 entries in
    one bucket); K7w window_sums on the first level of that MSM's 22 x 4096
-   bucket table (timed), and on every level; K8 combine on 22 random
-   Jacobian window totals (c = 12);
+   bucket table (timed), and on every level; K8 combine in one launch over
+   the 22 random Jacobian window totals (c = 12) of each of 11 MSMs;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
-   affine points must be equal;
+   affine points must be equal, one MSM at a time and the four queued
+   together and resolved by one K8 launch (msm_vec_end_many);
 5. cross-check: a 2^10-domain synthetic prove on the card, its commitments
    on the card through the MSM kernels (launch counts read from that
    prove), gives vk.bin and proof.bin bytes identical to the same prove on
@@ -39,9 +43,10 @@ Phases, each printing a JSON line with its wall seconds:
    SetupForProver, make_verification_key, prove, verify, through the entry
    points a user calls, commitments on the card ("msm": "device"), with the
    launch count of every kernel read from that run alone, and the launches
-   of the bucket reduction (K7r, K7w, K7) per commitment, at most 8.  The
-   proof must
-   verify and a tampered copy must not.  The same setup then makes vk.bin
+   of the bucket reduction (K7r, K7w, K7) per commitment, at most 8, and
+   one K8 launch for each group of commitments the backend was asked for
+   (a commit_many call, or a single commit).  The proof must verify and a
+   tampered copy must not.  The same setup then makes vk.bin
    and proof.bin again with every commitment in the host Pippenger (a
    TorchBackend subclass defined here): the bytes must be identical.  A
    last prove on the device setup runs under torch.profiler: device time by
@@ -64,10 +69,12 @@ Then the kernels line, the card line, and as the last line
 and no result line is printed.  Without a CUDA device it stops at once.
 """
 
+import contextlib
 import copy
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -97,6 +104,7 @@ MONT_MUL_OPS = 2 * (64 + 64) + 8
 POINT_BYTES = 3 * 32                       # a Jacobian point, [3, 8] words
 MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # products of madd, add, double
 REDUCTION_LAUNCHES_MAX = 8                 # K7r + K7w + K7 per commitment
+K8_BATCH = 11                              # MSMs of the K8 row: the vk's group
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit of phase 7
 SOURCES = {
@@ -156,13 +164,59 @@ def phase_build() -> None:
         log = kern.result()
         host.result()
     for name, rec in log.items():
-        regs = [ln.strip() for ln in rec["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        emit({"build": name, "nvcc_s": round(rec["seconds"], 3), "ptxas": regs})
+        emit({"build": name, "nvcc_s": round(rec["seconds"], 3),
+              "ptxas": ptxas_by_kernel(rec["ptxas"])})
+    emit({"build": "sass", "field": sass_counts(build.library_path("field"), {"mul_kernel"}),
+          "msm": sass_counts(build.library_path("msm"), {"bucket_sweep_kernel",
+                                                         "combine_kernel"})})
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": [os.path.basename(build.library_path(n)) for n in build.SOURCES],
           "native": os.path.basename(native.library_path())})
     print(card_line(), flush=True)
+
+
+def ptxas_by_kernel(report: str) -> dict:
+    """ptxas -v output -> {kernel: registers, shared memory, stack and
+    spill bytes (those of the device functions it calls included)}."""
+    out, cur = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            short = re.search(r"(?<=\d)([a-z_]+_kernel)E", m.group(1))
+            cur = short.group(1) if short else m.group(1)
+            out[cur] = {"spill_bytes": 0}
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[cur]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[cur]["registers"] = int(m.group(1))
+                for key, pat in (("stack_bytes", r"(\d+) bytes cumulative stack"),
+                                 ("smem_bytes", r"(\d+) bytes smem")):
+                    v = re.search(pat, ln)
+                    out[cur][key] = int(v.group(1)) if v else 0
+    return out
+
+
+def sass_counts(lib: str, kernels) -> dict:
+    """Instructions of the named kernels in a built library (cuobjdump
+    -sass), in all and of the IMAD family."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    dump = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for sec in dump.split("Function : ")[1:]:
+        short = re.search(r"(?<=\d)([a-z_]+_kernel)E", sec.split("\n", 1)[0])
+        if short is None or short.group(1) not in kernels:
+            continue
+        ops = re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sec,
+                         re.M)
+        out[short.group(1)] = {"instructions": len(ops),
+                               "imad": sum(op.startswith("IMAD") for op in ops)}
+    if set(out) != set(kernels):
+        raise AssertionError(f"cuobjdump -sass {lib}: found {sorted(out)} of {sorted(kernels)}")
+    return out
 
 
 def cli(*args, cwd: str, expect: int = 0) -> float:
@@ -467,14 +521,25 @@ def _msm_rows(ctx) -> list:
                     "latency at the upper levels, not by the bytes or operations counted here")
     k7w["mismatches"] += win_mism
 
-    # K8: 22 random window totals, c = 12
-    w = tuple(a[n // 2:n // 2 + ctx.num_windows].contiguous() for a in p)
+    # K8: one launch over the window totals of 11 MSMs (22 windows each,
+    # c = 12: the vk's group), beside one single-MSM launch and the same 11
+    # MSMs as 11 single-MSM launches in sequence
+    batch = K8_BATCH
+    w = tuple(a[n // 2:n // 2 + batch * ctx.num_windows].contiguous() for a in p)
+    singles = [tuple(a[b * ctx.num_windows:(b + 1) * ctx.num_windows] for a in w)
+               for b in range(batch)]
+    one = singles[0]
     doublings = ctx.c * (ctx.num_windows - 1)
-    k8 = _row("K8 combine", lambda: mk.combine(w, ctx.c), lambda: mk.combine_plain(w, ctx.c),
-              ctx.num_windows, (ctx.num_windows + 1) * POINT_BYTES,
-              (doublings * DBL_MULS + (ctx.num_windows - 1) * ADD_MULS) * MONT_MUL_OPS, 20,
-              warm_plain=False, note="one thread, ~250 dependent point operations: bound by latency, "
-                   "not by the bytes or operations counted here")
+    k8 = _row("K8 combine", lambda: mk.combine(w, ctx.c, batch),
+              lambda: mk.combine_plain(w, ctx.c, batch), batch * ctx.num_windows,
+              batch * (ctx.num_windows + 1) * POINT_BYTES,
+              batch * (doublings * DBL_MULS + (ctx.num_windows - 1) * ADD_MULS) * MONT_MUL_OPS,
+              20, warm_plain=False, batch=batch, windows=ctx.num_windows,
+              single_msm_ms=time_ms(lambda: mk.combine(one, ctx.c), 20),
+              single_launches_ms=time_ms(lambda: [mk.combine(s, ctx.c) for s in singles], 5),
+              note=f"{batch} MSMs, a thread each: ~{doublings + ctx.num_windows - 1} dependent "
+                   "point operations a thread, bound by latency, not by the bytes or "
+                   "operations counted here")
     return [k6, k7, k7r, k7w, k8]
 
 
@@ -504,7 +569,7 @@ def phase_msm(ctx, host_ctx) -> None:
         "single": np.zeros((n, 8), dtype=np.uint32),
     }
     vectors["single"][n // 3] = _random_fr_rows(rng, 1)[0]
-    out = {}
+    out, handles = {}, []
     for name, rows in vectors.items():
         rows = np.ascontiguousarray(rows)
         raw = to_tensor(rows, DEVICE)
@@ -517,9 +582,13 @@ def phase_msm(ctx, host_ctx) -> None:
         want = host_ctx.msm_rows(rows.view(np.uint8))
         host_ms = (time.perf_counter() - t) * 1e3
         out[name] = {"equal": got == want, "card_ms": card_ms, "host_ms": host_ms}
+        handles.append((name, ctx.msm_vec_begin(v), want))
+    batched = ctx.msm_vec_end_many([h for _, h, _ in handles])
+    for (name, _, want), got in zip(handles, batched):
+        out[name]["batched_equal"] = got == want
     emit({"phase": "msm", "points": n, "c": ctx.c, "windows": ctx.num_windows,
           "vectors": out, "seconds": round(time.perf_counter() - t0, 3)})
-    bad = [k for k, v in out.items() if not v["equal"]]
+    bad = [k for k, v in out.items() if not (v["equal"] and v["batched_equal"])]
     if bad:
         raise AssertionError(f"device MSM differs from the native one: {bad}")
 
@@ -576,6 +645,31 @@ def _reset_launches() -> None:
             counts[k] = 0
 
 
+@contextlib.contextmanager
+def _counting_commit_groups(groups: list):
+    """Append the size of every group of device commitments TorchBackend
+    is asked for (commit_many: its vectors; commit: 1) to `groups`."""
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+    from plonkit_tpu_torch.gpu.msm import MSMContext
+    many, one = TorchBackend.commit_many, TorchBackend.commit
+
+    def commit_many(self, msm_ctx, vs):
+        if isinstance(msm_ctx, MSMContext):
+            groups.append(len(vs))
+        return many(self, msm_ctx, vs)
+
+    def commit(self, msm_ctx, v):
+        if isinstance(msm_ctx, MSMContext):
+            groups.append(1)
+        return one(self, msm_ctx, v)
+
+    TorchBackend.commit_many, TorchBackend.commit = commit_many, commit
+    try:
+        yield
+    finally:
+        TorchBackend.commit_many, TorchBackend.commit = many, one
+
+
 def phase_main(key: str):
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.api import SetupForProver, verify
@@ -591,19 +685,21 @@ def phase_main(key: str):
 
     _reset_launches()
     profiling.reset()
-    t0 = time.perf_counter()
-    setup = SetupForProver(circuit, CrsHandle(key), device=DEVICE)
-    times["setup"] = time.perf_counter() - t0
-    domain = setup.setup_polynomials.domain_size
-    if domain != 1 << MAIN_LOG2:
-        raise AssertionError(f"domain {domain}, expected 2^{MAIN_LOG2}")
-    t0 = time.perf_counter()
-    vk = setup.make_verification_key()
-    times["vk"] = time.perf_counter() - t0
-    msm_vk = profiling.last_timings.get("msm", 0.0)
-    t0 = time.perf_counter()
-    proof = setup.prove(circuit)
-    times["prove"] = time.perf_counter() - t0
+    groups = []
+    with _counting_commit_groups(groups):
+        t0 = time.perf_counter()
+        setup = SetupForProver(circuit, CrsHandle(key), device=DEVICE)
+        times["setup"] = time.perf_counter() - t0
+        domain = setup.setup_polynomials.domain_size
+        if domain != 1 << MAIN_LOG2:
+            raise AssertionError(f"domain {domain}, expected 2^{MAIN_LOG2}")
+        t0 = time.perf_counter()
+        vk = setup.make_verification_key()
+        times["vk"] = time.perf_counter() - t0
+        msm_vk = profiling.last_timings.get("msm", 0.0)
+        t0 = time.perf_counter()
+        proof = setup.prove(circuit)
+        times["prove"] = time.perf_counter() - t0
     launches = {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
                 "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
                 "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
@@ -640,7 +736,7 @@ def phase_main(key: str):
           "msm_s": {"vk": round(msm_vk, 3),
                     "prove": round(stages.get("msm", 0.0) - msm_vk, 3)},
           "host_msm_s": round(host_msm, 3),
-          "launches": launches,
+          "launches": launches, "commit_groups": groups,
           "reduction_launches_per_commitment": per_commitment,
           "total_s": round(time.perf_counter() - t_all, 3)})
     if not ok or not rejected:
@@ -652,6 +748,10 @@ def phase_main(key: str):
     if per_commitment > REDUCTION_LAUNCHES_MAX:
         raise AssertionError(f"{per_commitment} reduction launches a commitment, "
                              f"more than {REDUCTION_LAUNCHES_MAX}")
+    if sum(groups) != commitments or launches["K8 combine"] != len(groups):
+        raise AssertionError(f"K8 launched {launches['K8 combine']} times and K6 "
+                             f"{commitments} for the commitment groups {groups}: one K8 "
+                             "launch a group expected")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")

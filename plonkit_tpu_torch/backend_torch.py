@@ -249,12 +249,12 @@ class TorchBackend:
         return msm_ctx.msm_rows(to_numpy(raw).view(np.uint8))
 
     def commit_many(self, msm_ctx, vs: Sequence[FrVec]):
-        """Several commitments: on a device context every MSM is queued
-        before the first result is read back."""
+        """Several commitments: on a device context every MSM is queued,
+        then one K8 launch combines them all and one copy brings the
+        points back."""
         if isinstance(msm_ctx, MSMContext):
             with stage("msm"):
-                handles = [msm_ctx.msm_vec_begin(v.data) for v in vs]
-                return [msm_ctx.msm_vec_end(h) for h in handles]
+                return msm_ctx.msm_vec_end_many([msm_ctx.msm_vec_begin(v.data) for v in vs])
         return [self.commit(msm_ctx, v) for v in vs]
 
     # -- elementwise ---------------------------------------------------------

@@ -18,10 +18,26 @@
 // same bytes.
 // What bounds it on the H100: 11 Montgomery products per entry (264 32-bit
 // multiply instructions each), about 2.3e7 entries at a 2^20 MSM with
-// c = 12: integer multiplies, ~4 ms at peak.  Its bytes (the 64 B row plus
-// a 4 B index per entry) are ~0.5 ms.  The design keeps the accumulator in
-// registers for the whole segment; the gathers are random 64 B rows.
-//
+// c = 12: integer multiplies, ~3.8 ms at peak.  Its bytes (the 64 B row plus
+// a 4 B index per entry) are ~0.5 ms.
+// What held it at 10.4 ms (36 % of that bound) before this design, read
+// from the code and the compiled SASS (ncu does not run on the card's
+// machine): (1) the product, a uint64 CIOS loop that compiled to 496
+// instructions, most of them carry handling around the multiplies; (2) two
+// dependent global loads per entry (the index, then the row it names) with
+// nothing loaded ahead; (3) index loads strided by a segment across the
+// warp, 32 sectors for 128 bytes; (4) 130 registers a thread.  What this
+// design does: (1) field.cuh's even/odd carry-chain product, 232
+// instructions, most of them fused IMAD.WIDE.U32.X; (2) a ring of two rows a
+// thread in shared memory, filled by cp.async, so entry i + 1's row is in
+// flight while entry i is added; (3) a warp first stages the 32 * SEGMENT
+// indices from its first segment's start, which hold all of its 32
+// segments, in shared memory with coalesced 16-byte loads; (4) __launch_bounds__ for 4 blocks
+// of 128 threads an SM (at most 128 registers; no spills).  Measured: 4.6
+// ms at the 2^20 main-path shape, 82 % of the bound (H100 80GB HBM3 at
+// 700 W, chip_smoke.py; registers in PERF.md).  The accumulator stays in
+// registers for the whole segment.
+
 // K7 padd replaces msm_pallas.py `padd` (_padd_body): an elementwise
 // complete Jacobian + Jacobian add, one thread per lane.  On the MSM path it
 // joins the two halves K7w leaves per window (below); the TPU drives it
@@ -67,7 +83,9 @@
 // K8 combine replaces msm_pallas.py `combine` (_combine_body): the window
 // totals sum_w 2^(c w) P_w, by Horner from the top window as
 // tpu/msm.py:_combine_body (c doublings and one complete add per window).
-// One thread: about 250 doublings in sequence, bound by latency.
+// One launch takes a queued group of MSMs (gpu/msm.py msm_vec_end_many), a
+// thread each: about 250 doublings in sequence, bound by latency, so the
+// group costs what one MSM does.
 //
 // C interface for ctypes, built like field.cu (gpu/build.py): every entry
 // launches on the given stream, allocates nothing, does not synchronise,
@@ -81,25 +99,93 @@ namespace {
 
 constexpr int kThreads = 128;
 
-__global__ void bucket_sweep_kernel(const uint32_t* __restrict__ table,
-                                    const int32_t* __restrict__ idx,
-                                    const int64_t* __restrict__ seg_start,
-                                    const int64_t* __restrict__ seg_len,
-                                    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                                    uint32_t* __restrict__ oz, int64_t m, FieldParams f) {
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= m) return;
-    const int64_t start = seg_start[t];
-    const int64_t len = seg_len[t];
+// K6 launch shape: 4 warps a block, and __launch_bounds__ asks for 4
+// blocks an SM (at most 128 registers a thread)
+constexpr int kSweepThreads = 128;
+constexpr int kSweepBlocksPerSM = 4;
+constexpr int kSegment = 32;                          // gpu/msm.py SEGMENT
+constexpr int kWarpEntries = 32 * kSegment;           // a warp's segments hold at most this
+constexpr int kStage = kWarpEntries + 8;              // its idx range, widened to whole quads
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// every group but the newest has landed
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kSweepThreads, kSweepBlocksPerSM)
+bucket_sweep_kernel(const uint32_t* __restrict__ table, const int32_t* __restrict__ idx,
+                    const int64_t* __restrict__ seg_start, const int64_t* __restrict__ seg_len,
+                    uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                    uint32_t* __restrict__ oz, int64_t m, int64_t e, FieldParams f) {
+    // a warp's indices, and a ring of two 64 B rows a thread laid out
+    // [slot][16 B quad][thread], so a warp's 16 B reads hit distinct banks
+    __shared__ __align__(16) int32_t s_idx[kSweepThreads / 32][kStage];
+    __shared__ uint4 ring[2][4][kSweepThreads];
+    const int lane = threadIdx.x & 31;
+    const int64_t t = (int64_t)blockIdx.x * kSweepThreads + threadIdx.x;
+    const int64_t start = t < m ? seg_start[t] : e;
+    const int64_t len = t < m ? seg_len[t] : 0;
+
+    // The segments of 32 consecutive threads are consecutive runs of idx
+    // of at most SEGMENT entries, the empty ones last (gpu/msm.py:
+    // _segments), so they lie in the window [lo, lo + 32 * SEGMENT) that
+    // starts at lane 0's segment: stage it in shared memory with coalesced
+    // 16 B loads.  A table whose segment leaves its warp's window breaks
+    // the wrapper's contract and stops the kernel.
+    const int64_t lo = __shfl_sync(0xffffffffu, start, 0);
+    const int64_t hi = lo + kWarpEntries < e ? lo + kWarpEntries : e;
+    if (len > 0 && (start < lo || start + len > hi)) __trap();
+    int32_t* s = s_idx[threadIdx.x >> 5];
+    const int64_t a0 = lo & ~(int64_t)3;
+    for (int64_t q = a0 + 4 * lane; q < hi; q += 128) {
+        int4 v;
+        if (q >= lo && q + 4 <= hi) {
+            v = __ldg(reinterpret_cast<const int4*>(idx + q));
+        } else {
+            v.x = q >= lo && q < hi ? __ldg(idx + q) : 0;
+            v.y = q + 1 >= lo && q + 1 < hi ? __ldg(idx + q + 1) : 0;
+            v.z = q + 2 >= lo && q + 2 < hi ? __ldg(idx + q + 2) : 0;
+            v.w = q + 3 >= lo && q + 3 < hi ? __ldg(idx + q + 3) : 0;
+        }
+        *reinterpret_cast<int4*>(s + (q - a0)) = v;
+    }
+    __syncwarp();
+
+    // Entry i + 1's row is in flight (cp.async into the ring) while entry
+    // i is added; each thread reads back only what it copied itself.
+    const uint4* rows = reinterpret_cast<const uint4*>(table);
+    auto fetch = [&](int64_t k, int slot) {
+        const int64_t row = s[k - a0];
+#pragma unroll
+        for (int q = 0; q < 4; q++) cp_async16(&ring[slot][q][threadIdx.x], rows + 4 * row + q);
+    };
     Jac acc = jac_infinity();
+    if (len > 0) fetch(start, 0);
+    cp_async_commit();
     for (int64_t i = 0; i < len; i++) {
-        const int64_t row = idx[start + i];
-        // row `row` of the [n, 16] table: x is element 2*row, y 2*row + 1
-        const Fe x = load_fe(table, 2 * row);
-        const Fe y = load_fe(table, 2 * row + 1);
+        const int slot = (int)(i & 1);
+        if (i + 1 < len) fetch(start + i + 1, slot ^ 1);
+        cp_async_commit();
+        cp_async_wait_all_but_one();
+        const uint4 x0 = ring[slot][0][threadIdx.x], x1 = ring[slot][1][threadIdx.x];
+        const uint4 y0 = ring[slot][2][threadIdx.x], y1 = ring[slot][3][threadIdx.x];
+        Fe x, y;
+        x.v[0] = x0.x; x.v[1] = x0.y; x.v[2] = x0.z; x.v[3] = x0.w;
+        x.v[4] = x1.x; x.v[5] = x1.y; x.v[6] = x1.z; x.v[7] = x1.w;
+        y.v[0] = y0.x; y.v[1] = y0.y; y.v[2] = y0.z; y.v[3] = y0.w;
+        y.v[4] = y1.x; y.v[5] = y1.y; y.v[6] = y1.z; y.v[7] = y1.w;
         acc = jac_add_mixed(acc, x, y, f);
     }
-    store_jac(ox, oy, oz, t, acc);
+    if (t < m) store_jac(ox, oy, oz, t, acc);
 }
 
 __global__ void padd_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
@@ -176,17 +262,20 @@ __global__ void window_sums_kernel(
     store_jac(oax, oay, oaz, c, a);
 }
 
+// thread b combines the num_windows rows of MSM b
 __global__ void combine_kernel(const uint32_t* __restrict__ wx, const uint32_t* __restrict__ wy,
-                               const uint32_t* __restrict__ wz, int num_windows, int c,
-                               uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                               const uint32_t* __restrict__ wz, int batch, int num_windows,
+                               int c, uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
                                uint32_t* __restrict__ oz, FieldParams f) {
-    if (blockIdx.x != 0 || threadIdx.x != 0) return;
-    Jac acc = load_jac(wx, wy, wz, num_windows - 1);
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= batch) return;
+    const int64_t base = (int64_t)b * num_windows;
+    Jac acc = load_jac(wx, wy, wz, base + num_windows - 1);
     for (int w = num_windows - 2; w >= 0; w--) {
         for (int k = 0; k < c; k++) acc = jac_double(acc, f);
-        acc = jac_add(acc, load_jac(wx, wy, wz, w), f);
+        acc = jac_add(acc, load_jac(wx, wy, wz, base + w), f);
     }
-    store_jac(ox, oy, oz, 0, acc);
+    store_jac(ox, oy, oz, b, acc);
 }
 
 bool fq_params(FieldParams* f) { return field_params(1, f); }
@@ -195,14 +284,15 @@ bool fq_params(FieldParams* f) { return field_params(1, f); }
 
 extern "C" int plonkit_bucket_sweep(const void* table, const void* idx, const void* seg_start,
                                     const void* seg_len, void* ox, void* oy, void* oz,
-                                    long long m, void* stream) {
+                                    long long m, long long e, void* stream) {
     FieldParams f;
-    if (!fq_params(&f) || m < 0) return (int)cudaErrorInvalidValue;
+    if (!fq_params(&f) || m < 0 || e < 0) return (int)cudaErrorInvalidValue;
     if (m == 0) return (int)cudaGetLastError();
-    const long long blocks = (m + kThreads - 1) / kThreads;
-    bucket_sweep_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    const long long blocks = (m + kSweepThreads - 1) / kSweepThreads;
+    bucket_sweep_kernel<<<(unsigned)blocks, kSweepThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)table, (const int32_t*)idx, (const int64_t*)seg_start,
-        (const int64_t*)seg_len, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int64_t)m, f);
+        (const int64_t*)seg_len, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (int64_t)m,
+        (int64_t)e, f);
     return (int)cudaGetLastError();
 }
 
@@ -257,12 +347,16 @@ extern "C" int plonkit_window_sums(const void* tx, const void* ty, const void* t
     return (int)cudaGetLastError();
 }
 
-extern "C" int plonkit_combine(const void* wx, const void* wy, const void* wz, int num_windows,
-                               int c, void* ox, void* oy, void* oz, void* stream) {
+extern "C" int plonkit_combine(const void* wx, const void* wy, const void* wz, int batch,
+                               int num_windows, int c, void* ox, void* oy, void* oz,
+                               void* stream) {
     FieldParams f;
-    if (!fq_params(&f) || num_windows < 1 || c < 1) return (int)cudaErrorInvalidValue;
-    combine_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)wx, (const uint32_t*)wy, (const uint32_t*)wz, num_windows, c,
+    if (!fq_params(&f) || batch < 1 || num_windows < 1 || c < 1)
+        return (int)cudaErrorInvalidValue;
+    constexpr int kCombineThreads = 32;
+    combine_kernel<<<(batch + kCombineThreads - 1) / kCombineThreads, kCombineThreads, 0,
+                     (cudaStream_t)stream>>>(
+        (const uint32_t*)wx, (const uint32_t*)wy, (const uint32_t*)wz, batch, num_windows, c,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, f);
     return (int)cudaGetLastError();
 }

@@ -36,12 +36,12 @@ _ARGTYPES = {
             [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
             "plonkit_butterfly":
             [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]},
-    "msm": {"plonkit_bucket_sweep": [_P] * 7 + [ctypes.c_longlong, _P],
+    "msm": {"plonkit_bucket_sweep": [_P] * 7 + [ctypes.c_longlong, ctypes.c_longlong, _P],
             "plonkit_padd": [_P] * 9 + [ctypes.c_longlong, _P],
             "plonkit_segment_fold": [_P] * 9 + [ctypes.c_longlong, _P],
             "plonkit_window_sums": [_P] * 18 + [ctypes.c_longlong, ctypes.c_longlong,
                                                 ctypes.c_int, ctypes.c_int, _P],
-            "plonkit_combine": [_P] * 3 + [ctypes.c_int, ctypes.c_int] + [_P] * 4},
+            "plonkit_combine": [_P] * 3 + [ctypes.c_int] * 3 + [_P] * 4},
 }
 
 _libs = {}

@@ -24,12 +24,17 @@ windows:
    levels of chunk walks over WINDOW_CHUNK items (the weighted chain of
    chunk totals goes up a level, the plain sum of the chunks' weighted
    parts beside it), and one K7 (padd) joins the two parts per window;
-8. K8 (combine) adds the windows by Horner;
-9. the one Jacobian point comes to the host and is made affine there.
+8. K8 (combine) adds the windows by Horner, one launch for a queued
+   group of MSMs (msm_vec_end_many: a thread per MSM);
+9. the group's Jacobian points come to the host in one copy and are made
+   affine there.
 
-Steps 5-8 launch kernels on CUDA tensors and take their plain versions on
-CPU ones (gpu/msm_kernels.py), so the same code runs the CPU tests.  At 2^20
-points (c = 12, group 32) a commitment launches K7r 3, K7w 3 and K7 once.
+Steps 1-7 queue on the device and wait for nothing (msm_vec_begin);
+steps 8-9 resolve one MSM or a queued group (msm_vec_end,
+msm_vec_end_many).  Steps 5-8 launch kernels on CUDA tensors and take
+their plain versions on CPU ones (gpu/msm_kernels.py), so the same code
+runs the CPU tests.  At 2^20 points (c = 12, group 32) a commitment
+launches K7r 3, K7w 3 and K7 once.
 
 What the reference does for its TPU layout and this port does not take
 over:
@@ -221,8 +226,9 @@ class MSMContext:
         return mk.padd(a, q)
 
     def _run(self, raw: torch.Tensor):
-        """Steps 2-8 on [m, 8] canonical scalar rows: the MSM as one [1, 8]
-        Jacobian triple on the device (nothing synchronises)."""
+        """Steps 2-7 on [m, 8] canonical scalar rows: the W window totals
+        as a Jacobian triple of [W, 8] rows on the device (nothing
+        synchronises)."""
         m = raw.shape[0]
         if m > self.n:
             raise ValueError(f"{m} scalars for {self.n} bases")
@@ -232,8 +238,7 @@ class MSMContext:
         keys = self._sorted_keys(raw)
         idx, seg_start, seg_len, seg_bucket = self._segments(keys, m)
         sums = mk.bucket_sweep(self.table, idx, seg_start, seg_len)
-        totals = self._window_totals(self._bucket_table(sums, seg_bucket))
-        return mk.combine(totals, self.c)
+        return self._window_totals(self._bucket_table(sums, seg_bucket))
 
     # -- entry points ----------------------------------------------------------
 
@@ -242,16 +247,27 @@ class MSMContext:
         affine point (None for infinity)."""
         raw = to_tensor(FR.to_limbs_np([s % FR_MODULUS for s in scalars]), self.device)
         with stage("msm"):
-            return ec.to_affine_host(self._run(raw))[0]
+            return self.msm_vec_end(self._run(raw))
 
     def msm_vec_begin(self, v_mont: torch.Tensor):
-        """Queue the MSM of a device [N, 8] Montgomery Fr vector (N <= n)
-        without synchronising; msm_vec_end resolves it."""
+        """Queue steps 1-7 of the MSM of a device [N, 8] Montgomery Fr
+        vector (N <= n) without synchronising: the handle is its window
+        totals, which msm_vec_end or msm_vec_end_many resolve."""
         raw = fk.mul(FR, v_mont.contiguous(), FR.const_raw(1, v_mont.shape[0], v_mont.device))
         return self._run(raw)
 
+    def msm_vec_end_many(self, handles) -> list:
+        """Steps 8-9 for a group of handles: one K8 launch over their
+        stacked window totals, one copy of the points to the host; the
+        affine points (None for infinity) in the handles' order."""
+        if not handles:
+            return []
+        totals = tuple(torch.cat(parts) for parts in zip(*handles))
+        points = torch.stack(mk.combine(totals, self.c, len(handles))).cpu()
+        return ec.to_affine_host(tuple(points))
+
     def msm_vec_end(self, handle):
-        return ec.to_affine_host(handle)[0]
+        return self.msm_vec_end_many([handle])[0]
 
     def msm_vec(self, v_mont: torch.Tensor):
         with stage("msm"):

@@ -52,9 +52,13 @@ def bucket_sweep(table, idx, seg_start, seg_len):
     """K6.  table: [n, 16] int32 affine rows (x || y, Montgomery Fq, all
     finite); idx: [E] int32 row indices in sorted order; seg_start, seg_len:
     [M] int64 segments of idx.  Returns M Jacobian segment sums.  Shapes,
-    types and devices are checked here; that every index lies in its table
-    is the caller's to hold (gpu/msm.py builds them), since checking the
-    values would wait for the card on every launch."""
+    types and devices are checked here.  The values are the caller's to
+    hold (gpu/msm.py builds them), since checking them would wait for the
+    card on every launch: every index lies in its table, and the segments
+    of rows 32 w .. 32 w + 31 lie in idx[seg_start[32 w]:][:32 * SEGMENT],
+    which _segments' consecutive runs of at most SEGMENT entries, the empty
+    ones last, do.  On the card a segment outside that window stops the
+    kernel, and the next call that synchronises raises a CUDA error."""
     if table.dtype != torch.int32 or table.dim() != 2 or table.shape[1] != 2 * NLIMBS \
             or not table.is_contiguous():
         raise ValueError(f"table: expected [n, {2 * NLIMBS}] contiguous int32")
@@ -67,8 +71,8 @@ def bucket_sweep(table, idx, seg_start, seg_len):
         raise ValueError("operands on different devices")
     if not table.is_cuda:
         return bucket_sweep_plain(table, idx, seg_start, seg_len)
-    if table.data_ptr() % 16:
-        raise ValueError("table rows must be 16-byte aligned")
+    if table.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError("table and idx must be 16-byte aligned")
     m = seg_start.shape[0]
     out = tuple(torch.empty((m, NLIMBS), dtype=torch.int32, device=table.device)
                 for _ in range(3))
@@ -76,7 +80,8 @@ def bucket_sweep(table, idx, seg_start, seg_len):
         lib = build.load("msm")
         build.check(lib.plonkit_bucket_sweep(
             table.data_ptr(), idx.data_ptr(), seg_start.data_ptr(), seg_len.data_ptr(),
-            *(o.data_ptr() for o in out), m, stream_ptr(table)), "K6 bucket_sweep")
+            *(o.data_ptr() for o in out), m, idx.shape[0], stream_ptr(table)),
+            "K6 bucket_sweep")
         launches["bucket_sweep"] += 1
     return out
 
@@ -248,32 +253,39 @@ def window_sums(t, p1, p2, k_in: int, chunk: int):
 
 # -- K8 ----------------------------------------------------------------------
 
-def combine_plain(w, c: int):
-    """sum_w 2^(c w) * P_w by Horner from the top window: c doublings and
-    one complete add per window, as tpu/msm.py:_combine_body.  Doubling
-    X = Y = Z = 0 gives X = Y = Z = 0, so those doublings are skipped."""
-    num = w[0].shape[0]
-    acc = tuple(a[num - 1:num] for a in w)
+def combine_plain(w, c: int, batch: int = 1):
+    """For each of `batch` MSMs, its W = rows / batch window totals
+    (consecutive rows) combined as sum_w 2^(c w) * P_w by Horner from the
+    top window: c doublings and one complete add per window, as
+    tpu/msm.py:_combine_body, on all the MSMs' rows at once (the kernel's
+    thread b walks row b).  Doubling X = Y = Z = 0 gives X = Y = Z = 0, so
+    the doublings are skipped while every accumulator is infinity."""
+    num = w[0].shape[0] // batch
+    stacks = tuple(a.reshape(batch, num, NLIMBS) for a in w)
+    acc = tuple(a[:, num - 1].contiguous() for a in stacks)
     for i in range(num - 2, -1, -1):
         if bool(torch.cat(acc, dim=1).any()):
             for _ in range(c):
                 acc = ec.double(acc)
-        acc = ec.add(acc, tuple(a[i:i + 1] for a in w))
+        acc = ec.add(acc, tuple(a[:, i].contiguous() for a in stacks))
     return acc
 
 
-def combine(w, c: int):
-    """K8: the W window totals w (Jacobian, [W, 8] each) -> one [1, 8]
-    Jacobian point."""
+def combine(w, c: int, batch: int = 1):
+    """K8: `batch` MSMs' window totals, W consecutive Jacobian rows each
+    ([batch * W, 8] per coordinate) -> [batch, 8] Jacobian points, one
+    launch for all of them (a thread per MSM)."""
     check_operands(*w)
-    if w[0].shape[0] < 1 or c < 1:
-        raise ValueError("combine: needs at least one window and c >= 1")
+    rows = w[0].shape[0]
+    if batch < 1 or rows < batch or rows % batch or c < 1:
+        raise ValueError(f"combine: {rows} rows are not {batch} stacks of at least one "
+                         f"window, or c = {c} < 1")
     if not w[0].is_cuda:
-        return combine_plain(w, c)
-    out = tuple(torch.empty((1, NLIMBS), dtype=torch.int32, device=w[0].device)
+        return combine_plain(w, c, batch)
+    out = tuple(torch.empty((batch, NLIMBS), dtype=torch.int32, device=w[0].device)
                 for _ in range(3))
     lib = build.load("msm")
-    build.check(lib.plonkit_combine(*(t.data_ptr() for t in w), w[0].shape[0], c,
+    build.check(lib.plonkit_combine(*(t.data_ptr() for t in w), batch, rows // batch, c,
                                     *(o.data_ptr() for o in out), stream_ptr(w[0])),
                 "K8 combine")
     launches["combine"] += 1

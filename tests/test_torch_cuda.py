@@ -8,6 +8,10 @@ import jax, so on such a machine run it as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -260,3 +264,80 @@ def test_small_commitments_on_the_card(card, tmp_path):
     before = mk.launches["bucket_sweep"]
     assert gpu.commit(ctx, FrVec(v.to(card))) == TorchBackend("cpu").commit(host, FrVec(v))
     assert mk.launches["bucket_sweep"] > before
+
+
+def test_bucket_sweep_staged_table_matches_plain(card):
+    """K6 stages each warp's indices: on the segments of 2^12 scalars with
+    a hot bucket, against the plain version."""
+    ctx, _, raw = _msm_inputs(card, 1 << 12, 24)
+    idx, seg_start, seg_len, _ = ctx._segments(ctx._sorted_keys(raw), 1 << 12)
+    before = mk.launches["bucket_sweep"]
+    assert _equal(mk.bucket_sweep(ctx.table, idx, seg_start, seg_len),
+                  mk.bucket_sweep_plain(ctx.table, idx, seg_start, seg_len))
+    assert mk.launches["bucket_sweep"] == before + 1
+
+
+_SWEEP_TABLE = """
+import sys, torch
+from plonkit_tpu_torch.gpu import msm_kernels as mk
+e, n = 4096, 64
+table = torch.zeros((n, 16), dtype=torch.int32, device="cuda")
+idx = (torch.arange(e, device="cuda") % n).to(torch.int32)
+start = {"runs": torch.arange(0, e, 32, device="cuda"),
+         "reversed": torch.arange(0, e, 32, device="cuda").flip(0).contiguous(),
+         "wide": torch.arange(0, e - 32, 40 * 32, device="cuda")}[sys.argv[1]]
+mk.bucket_sweep(table, idx, start, torch.full_like(start, 32))
+torch.cuda.synchronize()
+print("swept")
+"""
+
+
+@pytest.mark.parametrize("kind", ["runs", "reversed", "wide"])
+def test_bucket_sweep_rejects_segments_outside_the_warp_window(card, kind):
+    """A table whose segments leave their warp's staged window (consecutive
+    runs in reverse order, or runs 40 * 32 entries apart) stops K6 with a
+    CUDA error instead of reading past the window; the same runs in order
+    sweep.  Each runs in its own process, since the error ends the CUDA
+    context."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    run = subprocess.run([sys.executable, "-c", _SWEEP_TABLE, kind], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if kind == "runs":
+        assert run.returncode == 0 and "swept" in run.stdout, run.stderr
+    else:
+        assert run.returncode != 0 and "swept" not in run.stdout
+        assert "CUDA" in run.stderr or "cuda" in run.stderr, run.stderr
+
+
+def test_batched_combine_matches_plain_and_single_launches(card):
+    """K8 over 11 MSMs of 22 windows (c = 12) in one launch: equal to the
+    plain version and to 11 single launches."""
+    pts = dev_srs_g1(64, 42)
+    x, y, inf = ec.affine_from_host(pts, card)
+    p = ec.jacobian_from_affine((x, y, inf))
+    q = mk.padd(p, tuple(a.roll(3, 0).contiguous() for a in p))       # Z != 1
+    w = tuple(a.repeat(4, 1)[:11 * 22].contiguous() for a in q)       # 11 x 22 rows
+    for a in w:
+        a[22 * 4:22 * 4 + 5] = 0                                       # infinite windows
+    before = mk.launches["combine"]
+    got = mk.combine(w, 12, 11)
+    assert mk.launches["combine"] == before + 1
+    assert _equal(got, mk.combine_plain(w, 12, 11))
+    for b in range(11):
+        one = mk.combine(tuple(a[22 * b:22 * (b + 1)].contiguous() for a in w), 12)
+        assert _equal(tuple(g[b:b + 1] for g in got), one), b
+
+
+def test_msm_vec_end_many_on_the_card_matches_native(card):
+    n = 1 << 12
+    ctx = MSMContext(dev_srs_g1(n, 42), device=card)
+    host = HostMSMContext.from_points(dev_srs_g1(n, 42))
+    rng = np.random.default_rng(25)
+    rows = [[int.from_bytes(rng.bytes(32), "little") % mont.FR.p for _ in range(n)],
+            [int(b) for b in rng.integers(0, 2, n)], [7] * (n // 2)]
+    before = mk.launches["combine"]
+    handles = [ctx.msm_vec_begin(mont.to_tensor(mont.FR.to_mont_np(r), card)) for r in rows]
+    got = ctx.msm_vec_end_many(handles)
+    assert mk.launches["combine"] == before + 1
+    assert got == [host.msm_rows(mont.FR.to_limbs_np(r).view(np.uint8)) for r in rows]

@@ -1,0 +1,163 @@
+"""The PTX of the port's field arithmetic (plonkit_tpu_torch/csrc/field.cuh)
+run here, without a card, by a small emulator of the carry-flag
+instructions it uses (add/addc, sub/subc, mul, mad/madc with .lo/.hi and
+.cc): each asm statement's template is read from the header, its operands
+bound in the order of its constraint list, and the C++ around the
+statements (which statement runs when, with which limbs) is mirrored here.
+The Montgomery product, add and sub are held against big-integer
+arithmetic for Fr and Fq on edge and seeded random values, and every
+chain that ends without .cc must drop a carry of 0 (but the add of p
+after a borrow in fe_sub, which wraps mod 2^256 by design).  The kernels
+themselves run only on the card (tests/test_torch_cuda.py)."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from plonkit_tpu_torch.fields import FQ_MODULUS, FR_MODULUS
+
+SRC = (Path(__file__).parents[1] / "plonkit_tpu_torch" / "csrc" / "field.cuh").read_text()
+MASK = (1 << 32) - 1
+
+
+def _asm_blocks(signature: str) -> list:
+    """The instruction lists of the asm statements in the function whose
+    definition starts with `signature`, in source order."""
+    body = SRC[SRC.index(signature):]
+    body = body[:body.index("\n}\n")]
+    out = []
+    for m in re.finditer(r"asm\((.*?)\);", body, re.S):
+        template = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', m.group(1).split(":")[0]))
+        text = template.replace("\\n", "\n").replace("\\t", "")
+        out.append([ln.strip() for ln in text.split(";") if ln.strip()])
+    return out
+
+
+def _run(lines, ops, wraps=False):
+    """Execute one asm statement on operand values (outputs first, as in
+    its constraint list); returns the operands after it.  Unless the
+    statement wraps mod 2^256 by design (wraps), a chain end without .cc
+    must not drop a carry."""
+    ops, cf = list(ops), 0
+    for ln in lines:
+        op, args = ln.split(None, 1)
+        regs = [a.strip() for a in args.split(",")]
+        src = [ops[int(r[1:])] if r.startswith("%") else int(r, 0) for r in regs[1:]]
+        parts = op.split(".")
+        base, cc = parts[0], "cc" in parts
+        if base in ("add", "addc"):
+            r = src[0] + src[1] + (cf if base == "addc" else 0)
+            carry = r >> 32
+        elif base in ("sub", "subc"):
+            r = src[0] - src[1] - (cf if base == "subc" else 0)
+            carry = int(r < 0)
+        elif base in ("mad", "madc"):
+            prod = src[0] * src[1]
+            r = (prod & MASK if "lo" in parts else prod >> 32) + src[2] + \
+                (cf if base == "madc" else 0)
+            carry = r >> 32
+        elif base == "mul" and not cc:
+            prod = src[0] * src[1]
+            r, carry = (prod & MASK if "lo" in parts else prod >> 32), 0
+        else:
+            raise AssertionError(f"instruction not emulated: {op}")
+        if not cc and not wraps and base in ("add", "addc", "mad", "madc"):
+            assert carry == 0, f"{ln} drops a carry"
+        ops[int(regs[0][1:])] = r & MASK
+        if cc:
+            cf = carry
+    return ops
+
+
+REDUCE = _asm_blocks("__device__ __forceinline__ Fe reduce_once")
+ADD = _asm_blocks("__device__ __forceinline__ Fe fe_add")
+SUB = _asm_blocks("__device__ __forceinline__ Fe fe_sub")
+FIRST = _asm_blocks("__device__ __forceinline__ void eo_first")
+SHIFT_ODD = _asm_blocks("__device__ __forceinline__ void eo_shift_odd")
+MAD_EVEN = _asm_blocks("__device__ __forceinline__ void eo_mad_even")
+MAD_ODD = _asm_blocks("__device__ __forceinline__ void eo_mad_odd")
+MONT = _asm_blocks("__device__ __forceinline__ Fe fe_mont_mul")
+
+
+def limbs(x):
+    return [(x >> (32 * j)) & MASK for j in range(8)]
+
+
+def value(ls):
+    return sum(v << (32 * j) for j, v in enumerate(ls))
+
+
+def reduce_once(a, p):
+    out = _run(REDUCE[0], [0] * 9 + a + p)
+    return a if out[8] else out[:8]
+
+
+def fe_add(a, b, p):
+    return reduce_once(_run(ADD[0], [0] * 8 + a + b)[:8], p)
+
+
+def fe_sub(a, b, p):
+    out = _run(SUB[0], [0] * 9 + a + b)
+    pm = [x & out[8] for x in p]
+    return _run(SUB[1], out[:8] + pm, wraps=True)[:8]      # a - b + 2^256 + p
+
+
+def eo_row(e, o, a, b, p, n0, first):
+    odd, even = [a[1], a[3], a[5], a[7]], [a[0], a[2], a[4], a[6]]
+    if first:
+        out = _run(FIRST[0], [0] * 16 + a + [b])
+        e, o = out[:8], out[8:16]
+    else:
+        out = _run(SHIFT_ODD[0], [e[0]] + o + odd + [b])
+        e, o = [out[0]] + e[1:], out[1:9]
+        out = _run(MAD_EVEN[0], e + [o[7]] + even + [b])
+        e, o = out[:8], o[:7] + [out[8]]
+    m = e[0] * n0 & MASK
+    o = _run(MAD_ODD[0], o + [p[1], p[3], p[5], p[7], m])[:8]
+    out = _run(MAD_EVEN[0], e + [o[7]] + [p[0], p[2], p[4], p[6], m])
+    e, o = out[:8], o[:7] + [out[8]]
+    assert e[0] == 0
+    return e, o
+
+
+def fe_mont_mul(a, b, p, n0):
+    e, o = [0] * 8, [0] * 8
+    for i in range(0, 8, 2):
+        e, o = eo_row(e, o, a, b[i], p, n0, i == 0)
+        o, e = eo_row(o, e, a, b[i + 1], p, n0, False)
+    return reduce_once(_run(MONT[0], [0] * 8 + e + o[1:])[:8], p)
+
+
+FIELDS = {"fr": FR_MODULUS, "fq": FQ_MODULUS}
+
+
+def _pairs(p, seed):
+    edge = [0, 1, 2, p - 1, p - 2, p // 2, p // 2 + 1, (1 << 253) % p, (1 << 256) % p]
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(400)]
+    return [(x, y) for x in edge for y in edge] + list(zip(rand, rand[1:] + rand[:1]))
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_field_ptx_matches_big_integers(field, op):
+    p = FIELDS[field]
+    n0 = -pow(p, -1, 1 << 32) % (1 << 32)
+    r_inv = pow(1 << 256, -1, p)
+    for x, y in _pairs(p, seed=len(field) + len(op)):
+        a, b = limbs(x), limbs(y)
+        if op == "mul":
+            assert value(fe_mont_mul(a, b, limbs(p), n0)) == x * y * r_inv % p, (x, y)
+        elif op == "add":
+            assert value(fe_add(a, b, limbs(p))) == (x + y) % p, (x, y)
+        else:
+            assert value(fe_sub(a, b, limbs(p))) == (x - y) % p, (x, y)
+
+
+def test_field_ptx_uses_only_emulated_instructions():
+    """Every asm statement of field.cuh is one this file runs."""
+    seen = {id(b) for blocks in (REDUCE, ADD, SUB, FIRST, SHIFT_ODD, MAD_EVEN, MAD_ODD, MONT)
+            for b in blocks}
+    assert len(seen) == SRC.count("asm(") == 9
