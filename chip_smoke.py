@@ -11,9 +11,12 @@ Phases, each printing a JSON line with its wall seconds:
    instructions of K1 (one Montgomery product), K6 and K8 from the CUDA
    toolkit's cuobjdump, then the card's name and power limit as nvidia-smi
    reports them;
-2. srs: the tau = 42 dev SRS of 2^20 points, made by the CLI's
-   `setup -p 20` (srs.py, serial python); its first two points must be G
-   and 42 G;
+2. srs: the tau = 42 dev SRS of 2^21 points, made on the card by the CLI's
+   `setup -p 21` (gpu/fixed_base.py: 32 K7 launches for the windowed
+   ladder, K1 for the tau powers and the inversion of Z), run in this
+   process so that its launches can be counted; the key's first 2^12
+   points must be byte-equal to srs.py's (serial python), and its G2 pair
+   to [G2, 42 G2].  The 2^20 phases read the first 2^20 points of this key;
 3. kernels: every kernel on the card against its plain PyTorch version on
    the card, on the same inputs, equal bit for bit (integer arithmetic):
    K1 mul, K2a add, K2b sub, K4 mul_add at 2^20 elements and K3
@@ -56,15 +59,34 @@ Phases, each printing a JSON line with its wall seconds:
    export-verification-key (its vk.bin must equal the fixture's, made by the
    JAX package), prove (keccak), dump-lagrange and prove -l (the same
    proof.bin), verify (exit 0) and a tampered proof (exit 144),
-   generate-verifier (no placeholder left);
+   generate-verifier (no placeholder left), prove -t rescue of
+   scratch/recursive_r5/witness_0.json (equal to that fixture's proof_0.bin)
+   and verify -t rescue (exit 0);
 8. cli at full width: the main path's circuit written as .r1cs and .wtns,
    then export-verification-key, prove and verify through the CLI: vk.bin
    and proof.bin must equal the main phase's bytes from the API.  No CLI
-   process may rebuild a kernel library.  Phases 7 and 8 run at the same
-   time, and so do the calls of each that need no file of another: their
-   seconds are wall times of processes that share the host and the card.
+   process may rebuild a kernel library;
+9. recursive CLI on scratch/recursive_r5 (one rescue proof of the domain-64
+   circuit; the JAX package's aggregate at 2^21): the 5 recursive
+   subcommands, each once, over the 2^21 key:
+   export-recursive-verification-key and recursive-prove at once (each
+   synthesises the 1,611,923-gate aggregation circuit), then
+   recursive-verify (exit 0), recursive-verify of a copy with one flipped
+   byte (exit 144), check-aggregation (exit 0) and
+   generate-recursive-verifier -i 2; recursive_vk.bin, recursive_proof.bin
+   and recursive_verifier.sol must equal the fixture's byte for byte.
+   Phases 7, 8 and 9 run at the same time, and so do the calls of each
+   that need no file of another: their seconds are wall times of processes
+   that share the host and the card;
+10. recursive path in this process: prove_aggregation of the same proof
+   under torch.profiler, with every kernel's launches counted from 0 (each
+   must launch), its stage times (the prover rounds x r1 ... x r5),
+   torch.cuda.max_memory_allocated(), the device's busy time and idle
+   share; its bytes must equal the fixture's recursive_proof.bin.
 
-Then the kernels line, the card line, and as the last line
+Then the kernels line (each row with its launches on the main path of
+phase 6, on the recursive path of phase 10 and in the device SRS of phase
+2), the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and no result line is printed.  Without a CUDA device it stops at once.
 """
@@ -88,7 +110,9 @@ SEED = 20240917
 KERNEL_LOG2 = 20        # width of K1-K5 and K7
 SWEEP_LOG2 = 16         # scalars of the K6 one-window check
 CROSS_LOG2 = 10         # phase 5 domain
-MAIN_LOG2 = 20          # phase 6 domain and SRS size
+MAIN_LOG2 = 20          # phase 6 domain
+SRS_LOG2 = 21           # the device SRS: the aggregation circuit's domain
+SRS_CHECK_LOG2 = 12     # key prefix held against srs.py byte for byte
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
@@ -107,6 +131,7 @@ REDUCTION_LAUNCHES_MAX = 8                 # K7r + K7w + K7 per commitment
 K8_BATCH = 11                              # MSMs of the K8 row: the vk's group
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit of phase 7
+AGG_FIXTURES = os.path.join(REPO, "scratch", "recursive_r5")  # the 2^21 aggregate of phase 9
 SOURCES = {
     "K1 mul": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:149"),
     "K2a add": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:153"),
@@ -243,19 +268,39 @@ def cli_together(*calls, cwd: str) -> dict:
 
 
 def phase_srs(tmp: str) -> str:
-    from plonkit_tpu_torch.curve import G1_GEN, g1_mul
-    from plonkit_tpu_torch.gpu.mont import FQ
-    from plonkit_tpu_torch.serialization import load_crs_g1_limbs
+    """`setup -p 21` through the CLI's entry point, in this process."""
+    import torch
+    from plonkit_tpu_torch import cli as port_cli
+    from plonkit_tpu_torch.curve import G2_GEN, g2_mul
+    from plonkit_tpu_torch.serialization import CrsHandle, write_g1
+    from plonkit_tpu_torch.srs import dev_srs_g1
+    key = os.path.join(tmp, f"srs_2pow{SRS_LOG2}.key")
+    _reset_launches()
     t0 = time.perf_counter()
-    key = os.path.join(tmp, f"srs_2pow{MAIN_LOG2}.key")
-    cli("setup", "-p", str(MAIN_LOG2), "-m", key, cwd=tmp)
-    x, y, inf = load_crs_g1_limbs(key, 2)
-    pts = [None if inf[i] else (FQ.from_limbs_np(x[i:i + 1])[0], FQ.from_limbs_np(y[i:i + 1])[0])
-           for i in range(2)]
-    if pts != [G1_GEN, g1_mul(G1_GEN, 42)]:
-        raise AssertionError("SRS points 0 and 1 are not G and 42*G")
-    emit({"phase": "srs", "points": 1 << MAIN_LOG2, "seconds": round(time.perf_counter() - t0, 3)})
-    return key
+    port_cli.main(["setup", "-p", str(SRS_LOG2), "-m", key])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    n = 1 << SRS_CHECK_LOG2
+    want = io.BytesIO()
+    for p in dev_srs_g1(n, 42):
+        write_g1(want, p)
+    with open(key, "rb") as f:
+        head = f.read(8 + 64 * n)
+    handle = CrsHandle(key)
+    same = {"g1_prefix": head[8:] == want.getvalue(),
+            "count": handle.num_g1 == 1 << SRS_LOG2,
+            "g2": handle.g2_monomial_bases == [G2_GEN, g2_mul(G2_GEN, 42)]}
+    emit({"phase": "srs", "points": 1 << SRS_LOG2, "route": "device (gpu/fixed_base.py)",
+          "seconds": round(seconds, 3), "launches": launches,
+          "identical_to_srs_py": same, "compared_points": n,
+          "serial_srs_py_s_for_compared_points": round(time.perf_counter() - t0, 3)})
+    if not all(same.values()):
+        raise AssertionError(f"device SRS differs from srs.py: {same}")
+    if not launches["K7 padd"] or not launches["K1 mul"]:
+        raise AssertionError(f"the device SRS missed K7 or K1: {launches}")
+    return key, launches
 
 
 def _random_fr_rows(rng, n: int, planted_at: int = None) -> np.ndarray:
@@ -645,6 +690,18 @@ def _reset_launches() -> None:
             counts[k] = 0
 
 
+def _launch_counts() -> dict:
+    """Launches of every kernel since the last _reset_launches, by row name."""
+    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt
+    return {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
+            "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
+            "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
+            "K6 bucket_sweep": mk.launches["bucket_sweep"], "K7 padd": mk.launches["padd"],
+            "K7r segment_fold": mk.launches["segment_fold"],
+            "K7w window_sums": mk.launches["window_sums"],
+            "K8 combine": mk.launches["combine"]}
+
+
 @contextlib.contextmanager
 def _counting_commit_groups(groups: list):
     """Append the size of every group of device commitments TorchBackend
@@ -674,7 +731,7 @@ def phase_main(key: str):
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.api import SetupForProver, verify
     from plonkit_tpu_torch.frontend.synthetic import synth_circuit
-    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt
+    from plonkit_tpu_torch.gpu import msm_kernels as mk
     from plonkit_tpu_torch.serialization import CrsHandle, Proof
     t_all = time.perf_counter()
     times = {}
@@ -700,13 +757,7 @@ def phase_main(key: str):
         t0 = time.perf_counter()
         proof = setup.prove(circuit)
         times["prove"] = time.perf_counter() - t0
-    launches = {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
-                "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
-                "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
-                "K6 bucket_sweep": mk.launches["bucket_sweep"], "K7 padd": mk.launches["padd"],
-                "K7r segment_fold": mk.launches["segment_fold"],
-                "K7w window_sums": mk.launches["window_sums"],
-                "K8 combine": mk.launches["combine"]}
+    launches = _launch_counts()
     commitments = mk.launches["bucket_sweep"]
     per_commitment = (mk.launches["segment_fold"] + mk.launches["window_sums"]
                       + mk.launches["padd"]) / max(1, commitments)
@@ -800,7 +851,13 @@ def phase_cli(tmp: str) -> None:
         ("verify", ["verify", "-p", "proof.bin", "-v", "vk.bin"]),
         ("verify tampered", ["verify", "-p", "tampered.bin", "-v", "vk.bin"], 400 % 256),
         ("generate-verifier", ["generate-verifier", "-v", "vk.bin", "-s", "verifier.sol"]),
+        ("prove -t rescue", ["prove", "-m", "setup.key", "-c", circuit, "-w",
+                             os.path.join(AGG_FIXTURES, "witness_0.json"), "-t", "rescue",
+                             "-p", "proof_rescue.bin", "-j", "proof_rescue.json",
+                             "-i", "public_rescue.json"]),
         cwd=d))
+    s.update(cli_together(("verify -t rescue", ["verify", "-p", "proof_rescue.bin", "-v",
+                                                "vk.bin", "-t", "rescue"]), cwd=d))
     with open(os.path.join(d, "analyse.json")) as f:
         stats = json.load(f)
     with open(os.path.join(d, "verifier.sol")) as f:
@@ -808,7 +865,9 @@ def phase_cli(tmp: str) -> None:
     same = {"vk.bin = fixture vk.bin": _same_file(os.path.join(d, "vk.bin"),
                                                   os.path.join(FIXTURES, "vk.bin")),
             "prove -l = prove": _same_file(os.path.join(d, "proof_l.bin"),
-                                           os.path.join(d, "proof.bin"))}
+                                           os.path.join(d, "proof.bin")),
+            "prove -t rescue = fixture proof_0.bin": _same_file(
+                os.path.join(d, "proof_rescue.bin"), os.path.join(AGG_FIXTURES, "proof_0.bin"))}
     emit({"phase": "cli", "domain": 64, "identical": same, "num_gates": stats["num_gates"],
           "contract_placeholders_left": sol.count("{{"),
           "seconds": {k: round(v, 3) for k, v in s.items()},
@@ -848,6 +907,86 @@ def phase_cli_full(tmp: str, key: str, circuit, vk_bytes: bytes, proof_bytes: by
         raise AssertionError(f"CLI and API bytes differ at 2^{MAIN_LOG2}: {same}")
 
 
+def phase_recursive_cli(tmp: str, key: str) -> None:
+    """The 5 recursive subcommands on scratch/recursive_r5 over the 2^21
+    key: their outputs must be the fixture's bytes."""
+    from plonkit_tpu_torch.recursive.aggregation import AggregatedProof
+    t_all = time.perf_counter()
+    d = os.path.join(tmp, "recursive")
+    os.makedirs(d)
+    old_vk = os.path.join(AGG_FIXTURES, "vk.bin")
+    with open(os.path.join(d, "old_proof_list.txt"), "w") as f:
+        f.write(os.path.join(AGG_FIXTURES, "proof_0.bin") + "\n")
+    s = cli_together(
+        ("export-recursive-verification-key", ["export-recursive-verification-key", "-c", "1",
+                                               "-i", "2", "-m", key, "-o", old_vk]),
+        ("recursive-prove", ["recursive-prove", "-m", key, "-f", "old_proof_list.txt",
+                             "-v", old_vk]), cwd=d)
+    with open(os.path.join(d, "recursive_proof.bin"), "rb") as f:
+        blob = bytearray(f.read())
+    outer = AggregatedProof.read(io.BytesIO(bytes(blob))).proof.to_bytes()
+    blob[len(blob) - len(outer) + 16 + 31] ^= 1     # a bit of the outer public input
+    with open(os.path.join(d, "tampered.bin"), "wb") as f:
+        f.write(blob)
+    s.update(cli_together(
+        ("recursive-verify", ["recursive-verify"]),
+        ("recursive-verify tampered", ["recursive-verify", "-p", "tampered.bin"], 400 % 256),
+        ("check-aggregation", ["check-aggregation", "-o", "old_proof_list.txt", "-v", old_vk]),
+        ("generate-recursive-verifier", ["generate-recursive-verifier", "-o", old_vk,
+                                         "-i", "2", "-s", "recursive_verifier.sol"]), cwd=d))
+    same = {name: _same_file(os.path.join(d, name), os.path.join(AGG_FIXTURES, name))
+            for name in ("recursive_vk.bin", "recursive_proof.bin", "recursive_verifier.sol")}
+    emit({"phase": "recursive_cli", "domain": 1 << SRS_LOG2, "identical_to_fixture": same,
+          "seconds": {k: round(v, 3) for k, v in s.items()},
+          "total_s": round(time.perf_counter() - t_all, 3)})
+    if not all(same.values()):
+        raise AssertionError(f"recursive CLI outputs differ from the fixture's: {same}")
+
+
+def phase_recursive(tmp: str, key: str) -> dict:
+    """One prove_aggregation in this process under torch.profiler: launches
+    of every kernel from 0, stage times, peak device memory, device busy
+    time and idle share; its bytes must be the fixture's."""
+    import torch
+    from plonkit_tpu_torch import profiling
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+    from plonkit_tpu_torch.recursive.aggregation import prove_aggregation
+    from plonkit_tpu_torch.serialization import CrsHandle, Proof, VerificationKey
+    vk = VerificationKey.load(os.path.join(AGG_FIXTURES, "vk.bin"))
+    proofs = [Proof.load(os.path.join(AGG_FIXTURES, "proof_0.bin"))]
+    backend = TorchBackend(DEVICE)
+    crs = CrsHandle(key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    profiling.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        agg = prove_aggregation(crs, proofs, vk, backend=backend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stages = dict(profiling.last_timings)
+    agg.save(os.path.join(tmp, "recursive_proof_api.bin"))
+    same = _same_file(os.path.join(tmp, "recursive_proof_api.bin"),
+                      os.path.join(AGG_FIXTURES, "recursive_proof.bin"))
+    kernels, busy, by_kernel = device_activity(prof)
+    emit({"phase": "recursive", "domain": 1 << SRS_LOG2, "n": agg.proof.n,
+          "identical_to_fixture": same, "prove_aggregation_s": wall,
+          "stages_s": {k: round(v, 3) for k, v in stages.items()},
+          "launches": launches, "max_memory_allocated_bytes": peak,
+          "device_events": len(kernels), "device_busy_s": busy,
+          "device_idle_share": 1 - busy / wall, "by_kernel": by_kernel})
+    if not same:
+        raise AssertionError("prove_aggregation gives other bytes than the fixture's")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the recursive path: {idle}")
+    return launches
+
+
 def merged_busy_us(intervals) -> float:
     """Total length of the union of [start, end) intervals (microseconds)."""
     busy, cur_start, cur_end = 0.0, None, None
@@ -879,6 +1018,18 @@ def profile_prove(setup, circuit, vk) -> None:
         wall = time.perf_counter() - t0
     if not verify(vk, proof):
         raise AssertionError("the profiled proof does not verify")
+    kernels, busy, by_kernel = device_activity(prof)
+    emit({"phase": "profile", "prove_wall_s": wall, "device_events": len(kernels),
+          "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+          "msm_s": profiling.last_timings.get("msm", 0.0),
+          "stages_s": {k: round(v, 3) for k, v in profiling.last_timings.items()},
+          "by_kernel": by_kernel})
+
+
+def device_activity(prof, top: int = 16):
+    """A torch.profiler run's device events, their busy seconds (the union
+    of their intervals) and the `top` kernel names by device time."""
+    import torch
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device activity")
@@ -888,12 +1039,9 @@ def profile_prove(setup, circuit, vk) -> None:
         rec[0] += 1
         rec[1] += e.time_range.end - e.time_range.start
     busy = merged_busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
-    emit({"phase": "profile", "prove_wall_s": wall, "device_events": len(kernels),
-          "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
-          "msm_s": profiling.last_timings.get("msm", 0.0),
-          "stages_s": {k: round(v, 3) for k, v in profiling.last_timings.items()},
-          "by_kernel": [{"name": n[:80], "count": c, "ms": t / 1e3} for n, (c, t) in top]})
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return kernels, busy, [{"name": n[:80], "count": c, "ms": t / 1e3}
+                           for n, (c, t) in ranked]
 
 
 def main() -> int:
@@ -909,7 +1057,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     with tempfile.TemporaryDirectory(prefix="plonkit_smoke_") as tmp:
-        key = phase_srs(tmp)
+        key, launches_srs = phase_srs(tmp)
         handle = CrsHandle(key)
         ctx = TorchBackend(DEVICE).device_msm_context(handle, 1 << MAIN_LOG2)
         rows = phase_kernels(ctx)
@@ -919,14 +1067,20 @@ def main() -> int:
         launches, circuit, vk_bytes, proof_bytes = phase_main(key)
         torch.cuda.empty_cache()
         built = _build_snapshot()
-        with ThreadPoolExecutor(1) as pool:     # phases 7 and 8 at once
+        with ThreadPoolExecutor(2) as pool:     # phases 7, 8 and 9 at once
             full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes)
+            rec = pool.submit(phase_recursive_cli, tmp, key)
             phase_cli(tmp)
             full.result()
+            rec.result()
         if _build_snapshot() != built:
             raise AssertionError("a CLI process rebuilt a kernel library")
+        del circuit
+        launches_recursive = phase_recursive(tmp, key)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["launches_recursive"] = launches_recursive[r["name"]]
+        r["launches_srs"] = launches_srs[r["name"]]
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     print(card_line(), flush=True)

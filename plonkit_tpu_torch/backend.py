@@ -24,8 +24,9 @@ from .profiling import stage
 
 
 class Backend(Protocol):
-    """What plonk/setup.py and plonk/prover.py call.  Every vector
-    operation is over Fr; semantics as in plonkit_tpu/backend.HostBackend."""
+    """What plonk/setup.py, plonk/prover.py and plonk/extended.py call.
+    Every vector operation is over Fr; semantics as in
+    plonkit_tpu/backend.HostBackend."""
 
     def from_ints(self, values: Sequence[int], pad_to: int = None): ...
     def from_raw_limbs(self, raw: np.ndarray): ...
@@ -55,6 +56,14 @@ class Backend(Protocol):
     def slice(self, v, start: int, stop: int): ...
     def rotate(self, v, k: int): ...
     def tile_small(self, values: Sequence[int], total: int): ...
+    # the extended prover (plonk/extended.py) also calls these
+    def mul(self, a, b): ...
+    def add(self, a, b): ...
+    def add_scalar(self, a, k: int): ...
+    def batch_inverse(self, v): ...
+    def grand_product(self, factors): ...
+    def offload(self, v): ...
+    def onload(self, h): ...
 
 
 # below this many points a chunk is not worth a thread of its own

@@ -76,27 +76,6 @@ class TorchBackend:
     def _scale(self, a: torch.Tensor, k: int) -> torch.Tensor:
         return fk.mul(FR, a, self._const(k, a.shape[0]))
 
-    def _prefix_products(self, x: torch.Tensor) -> torch.Tensor:
-        """Inclusive prefix products by Hillis-Steele rounds (one K1
-        launch per round), as backend_jax._prefix_products_body."""
-        n = x.shape[0]
-        ones = self._ones(n)
-        p = x
-        for i in range(max(1, (n - 1).bit_length())):
-            d = 1 << i
-            p = self._mul(p, torch.cat([ones[:d], p[:n - d]]))
-        return p
-
-    def _suffix_products(self, x: torch.Tensor) -> torch.Tensor:
-        """S_i = prod_{j>=i} x_j (Hillis-Steele)."""
-        n = x.shape[0]
-        ones = self._ones(n)
-        p = x
-        for i in range(max(1, (n - 1).bit_length())):
-            d = 1 << i
-            p = self._mul(p, torch.cat([p[d:], ones[:d]]))
-        return p
-
     def _suffix_sums(self, v: torch.Tensor) -> torch.Tensor:
         """S_k = sum_{j>=k} v_j (Hillis-Steele, one K2a launch per round)."""
         n = v.shape[0]
@@ -109,24 +88,6 @@ class TorchBackend:
 
     def _shift_in_one(self, factors: torch.Tensor) -> torch.Tensor:
         return torch.cat([self._ones(1), factors[:-1]])
-
-    def _batch_inverse(self, v: torch.Tensor) -> torch.Tensor:
-        """Montgomery batch inversion (zeros map to zero): two product
-        scans, one scalar inverse, two combining products.  The scalar
-        inverse of the total is taken on the host (one 32-byte read back),
-        where backend_jax runs a one-lane Fermat ladder on the device."""
-        n = v.shape[0]
-        one = self._ones(n)
-        zero_mask = (v == 0).all(dim=1, keepdim=True)
-        x = torch.where(zero_mask, one, v)
-        pre = self._prefix_products(x)
-        suf = self._suffix_products(x)
-        total = self._to_ints(pre[n - 1:n])[0]
-        pre_excl = torch.cat([one[:1], pre[:n - 1]])
-        suf_excl = torch.cat([suf[1:], one[:1]])
-        out = self._mul(pre_excl, suf_excl)
-        out = self._scale(out, fr_inv(total))
-        return torch.where(zero_mask, torch.zeros_like(out), out)
 
     def _to_ints(self, data: torch.Tensor) -> List[int]:
         raw = fk.mul(FR, data.contiguous(), FR.const_raw(1, data.shape[0], self.device))
@@ -269,6 +230,54 @@ class TorchBackend:
         """a * k + c (one K4 launch)."""
         return FrVec(self._mul_add(a.data, self._const(k, len(a)), c.data))
 
+    def mul(self, a: FrVec, b: FrVec) -> FrVec:
+        return FrVec(self._mul(a.data, b.data))
+
+    def add(self, a: FrVec, b: FrVec) -> FrVec:
+        return FrVec(self._add(a.data, b.data))
+
+    def add_scalar(self, a: FrVec, k: int) -> FrVec:
+        """a + k (one K2a launch against a constant row)."""
+        return FrVec(self._add(a.data, self._const(k, len(a))))
+
+    # -- accumulators of the extended prover (plonk/extended.py) -------------
+    # backend_jax donates `acc` to these; here each returns a new buffer and
+    # the caller drops `acc`, whose memory the caching allocator hands to the
+    # next result.  The kernels take no aliased output.
+
+    def fma_acc(self, acc: FrVec, x: FrVec, y: FrVec) -> FrVec:
+        """acc + x * y (one K4 launch)."""
+        return FrVec(self._mul_add(x.data, y.data, acc.data))
+
+    def add_into(self, acc: FrVec, t: FrVec) -> FrVec:
+        return self.add(acc, t)
+
+    def mul_into(self, acc: FrVec, t: FrVec) -> FrVec:
+        return self.mul(acc, t)
+
+    def grand_product(self, factors: FrVec) -> FrVec:
+        """[1, f_0, f_0 f_1, ...]: the prefix products of the factors
+        shifted in by one (K1 scan rounds)."""
+        return FrVec(fk.prefix_products(FR, self._shift_in_one(factors.data)))
+
+    # -- memory placement ------------------------------------------------------
+    # The extended prover keeps monomial forms in host memory and brings
+    # each back when a round needs it (as backend_jax's pull_np / push_dev).
+
+    def offload(self, v: FrVec) -> torch.Tensor:
+        """The vector's rows in host memory (pinned on a card, so `onload`
+        copies back without staging); on the CPU the tensor itself."""
+        if self.device.type == "cpu":
+            return v.data
+        host = torch.empty(v.data.shape, dtype=v.data.dtype, pin_memory=True)
+        host.copy_(v.data)
+        return host
+
+    def onload(self, h) -> FrVec:
+        if isinstance(h, FrVec):
+            return h
+        return FrVec(h.to(self.device, non_blocking=True))
+
     # -- composite rounds ----------------------------------------------------
 
     def gate_residual(self, sel_v, wires_v, pi_vec) -> FrVec:
@@ -341,11 +350,10 @@ class TorchBackend:
             t_d = mul_add(sigma_v[j].data, beta_v, w_gamma)
             num = t_n if num is None else mul(num, t_n)
             den = t_d if den is None else mul(den, t_d)
-        ratio = mul(num, self._batch_inverse(den))
-        return FrVec(self._prefix_products(self._shift_in_one(ratio)))
+        return self.grand_product(FrVec(mul(num, fk.batch_inverse(FR, den))))
 
     def batch_inverse(self, v: FrVec) -> FrVec:
-        return FrVec(self._batch_inverse(v.data))
+        return FrVec(fk.batch_inverse(FR, v.data))
 
     def powers(self, base: int, n: int) -> FrVec:
         return FrVec(gntt.powers(base % R, n, self.device))

@@ -1,20 +1,21 @@
 """plonkit-compatible command line interface of the port, from
-plonkit_tpu/cli.py: the 7 base subcommands with the reference's flags and
+plonkit_tpu/cli.py: the reference's 12 subcommands with its flags and
 defaults,
 
   analyse, setup, dump-lagrange, prove, verify, generate-verifier,
-  export-verification-key
+  export-verification-key, and the recursive aggregation suite:
+  generate-recursive-verifier, export-recursive-verification-key,
+  recursive-prove, recursive-verify, check-aggregation
 
 Kept from the reference: circuit-file resolution, the no-clobber
 --overwrite guards, proof.json/public.json on prove, and exit code 400 for
-an invalid proof (seen as 144 by a POSIX shell).  The recursive
-subcommands (generate-recursive-verifier, export-recursive-verification-key,
-recursive-prove, recursive-verify, check-aggregation) come with the
-recursive slice of the port and are not registered yet.
+an invalid proof or aggregation (seen as 144 by a POSIX shell).
 
 `--backend cuda` (the default) proves on the card and raises without one;
 `--backend cpu` takes the kernels' plain versions on the CPU.  Nothing
-falls back from one to the other.
+falls back from one to the other.  `setup -p` above 16 makes the SRS on
+the card (gpu/fixed_base.py) with `--backend cuda`, and on the host
+(srs.py) otherwise, as plonkit_tpu/cli.py does.
 """
 
 import argparse
@@ -63,8 +64,15 @@ def cmd_analyse(args):
 
 def cmd_setup(args):
     _no_clobber(args.srs_monomial_form, args.overwrite, "srs_monomial_form")
-    srs = api.gen_key_monomial_form(args.power)
-    srs.save(args.srs_monomial_form)
+    if args.power > 16 and args.backend == "cuda":
+        from .curve import G2_GEN, g2_mul
+        from .gpu.fixed_base import gen_crs_g1_device
+        from .serialization import save_crs_g1_limbs
+        TorchBackend(args.backend)              # raises without a card
+        save_crs_g1_limbs(args.srs_monomial_form, *gen_crs_g1_device(args.power, api.DEV_TAU),
+                          [G2_GEN, g2_mul(G2_GEN, api.DEV_TAU)])
+    else:
+        api.gen_key_monomial_form(args.power).save(args.srs_monomial_form)
     log.info("srs_monomial_form saved to %s", args.srs_monomial_form)
 
 
@@ -128,6 +136,90 @@ def cmd_export_verification_key(args):
     log.info("Verification key saved to %s", args.vk)
 
 
+def _load_proof_list(path):
+    proofs = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                proofs.append(Proof.load(line))
+    if not proofs:
+        sys.exit(f"no proofs listed in {path}")
+    n_inputs = len(proofs[0].input_values)
+    for p in proofs:
+        if len(p.input_values) != n_inputs:
+            sys.exit("proofs have different num inputs")
+    return proofs
+
+
+def cmd_export_recursive_vk(args):
+    from .recursive.aggregation import make_recursive_vk
+    old_vk = VerificationKey.load(args.old_vk)
+    if args.num_inputs != old_vk.num_inputs:
+        sys.exit(f"--num_inputs {args.num_inputs} != old vk num_inputs {old_vk.num_inputs}")
+    _no_clobber(args.vk, args.overwrite, "recursive vk")
+    rvk = make_recursive_vk(CrsHandle(args.srs_monomial_form), old_vk,
+                            args.num_proofs_to_check, backend=TorchBackend(args.backend))
+    rvk.save(args.vk)
+    log.info("Recursive verification key saved to %s", args.vk)
+
+
+def cmd_recursive_prove(args):
+    from .recursive.aggregation import prove_aggregation
+    old_vk = VerificationKey.load(args.old_vk)
+    proofs = _load_proof_list(args.old_proof_list)
+    _no_clobber(args.new_proof, args.overwrite, "recursive proof")
+    _no_clobber(args.proofjson, args.overwrite, "recursive proof json")
+    agg = prove_aggregation(CrsHandle(args.srs_monomial_form), proofs, old_vk,
+                            backend=TorchBackend(args.backend))
+    agg.save(args.new_proof)
+    log.info("Recursive proof saved to %s", args.new_proof)
+    inputs, serialized = agg.proof.serialize_for_solidity()
+    with open(args.proofjson, "w") as f:
+        json.dump({"proof": [str(w) for w in serialized],
+                   "inputs": [str(x) for x in inputs],
+                   "vk_root": str(agg.vk_root),
+                   "aggr_limbs": [str(v) for v in agg.aggr_limbs],
+                   "individual_inputs": [str(v) for v in agg.individual_inputs]},
+                  f, indent=1)
+    log.info("Recursive proof json saved to %s", args.proofjson)
+
+
+def cmd_recursive_verify(args):
+    from .plonk.extended import VerificationKey2
+    from .recursive.aggregation import AggregatedProof, verify_aggregation
+    rvk = VerificationKey2.load(args.vk)
+    agg = AggregatedProof.load(args.proof)
+    if verify_aggregation(rvk, agg):
+        log.info("Proof is valid.")
+    else:
+        log.info("Proof is invalid!")
+        sys.exit(400)
+
+
+def cmd_check_aggregation(args):
+    from .recursive.aggregation import AggregatedProof, check_aggregation
+    old_vk = VerificationKey.load(args.old_vk)
+    proofs = _load_proof_list(args.old_proof_list)
+    agg = AggregatedProof.load(args.new_proof)
+    if check_aggregation(old_vk, proofs, agg):
+        log.info("Aggregation is corresponding to the original proofs.")
+    else:
+        log.info("Aggregation does NOT correspond to the original proofs!")
+        sys.exit(400)
+
+
+def cmd_generate_recursive_verifier(args):
+    from .plonk.extended import VerificationKey2
+    from .solidity import render_recursive_verification_key_to_file
+    old_vk = VerificationKey.load(args.old_vk)
+    new_vk = VerificationKey2.load(args.new_vk)
+    _no_clobber(args.sol, args.overwrite, "solidity")
+    render_recursive_verification_key_to_file(old_vk, new_vk, args.num_inputs,
+                                              args.sol, args.tpl)
+    log.info("Contract saved to %s", args.sol)
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="plonkit-tpu-torch",
@@ -144,9 +236,8 @@ def build_parser():
     sp.set_defaults(func=cmd_analyse)
 
     sp = sub.add_parser("setup", help="Trusted locally set up Plonk universal srs in monomial "
-                                      "form (the tau = 42 dev SRS, made on the host by serial "
-                                      "python at every power, also above 2^16, until the "
-                                      "device SRS is ported)")
+                                      "form (the tau = 42 dev SRS: on the card above 2^16 "
+                                      "with --backend cuda, else serial python on the host)")
     sp.add_argument("-p", "--power", type=int, required=True)
     sp.add_argument("-m", "--srs_monomial_form", required=True)
     sp.add_argument("--overwrite", action="store_true")
@@ -169,14 +260,15 @@ def build_parser():
     sp.add_argument("-j", "--proofjson", default="proof.json")
     sp.add_argument("-i", "--publicjson", default="public.json")
     sp.add_argument("-t", "--transcript", default="keccak",
-                    help="keccak; rescue comes with the recursive slice")
+                    help="keccak, or rescue for a proof that recursive-prove aggregates")
     sp.add_argument("--overwrite", action="store_true")
     sp.set_defaults(func=cmd_prove)
 
     sp = sub.add_parser("verify", help="Verify a SNARK proof")
     sp.add_argument("-p", "--proof", default="proof.bin")
     sp.add_argument("-v", "--verification_key", dest="vk", default="vk.bin")
-    sp.add_argument("-t", "--transcript", default="keccak")
+    sp.add_argument("-t", "--transcript", default="keccak",
+                    help="the proof's transcript: keccak or rescue")
     sp.set_defaults(func=cmd_verify)
 
     sp = sub.add_parser("generate-verifier", help="Generate verifier smart contract")
@@ -192,6 +284,49 @@ def build_parser():
     sp.add_argument("-v", "--vk", default="vk.bin")
     sp.add_argument("--overwrite", action="store_true")
     sp.set_defaults(func=cmd_export_verification_key)
+
+    # recursive aggregation suite (flags mirror plonkit's src/bin/main.rs:154-256)
+    sp = sub.add_parser("generate-recursive-verifier",
+                        help="Generate recursive verifier smart contract")
+    sp.add_argument("-o", "--old_vk", default="vk.bin")
+    sp.add_argument("-n", "--new_vk", default="recursive_vk.bin")
+    sp.add_argument("-i", "--num_inputs", type=int, required=True)
+    sp.add_argument("-s", "--sol", default="verifier.sol")
+    sp.add_argument("-t", "--template", dest="tpl")
+    sp.add_argument("--overwrite", action="store_true")
+    sp.set_defaults(func=cmd_generate_recursive_verifier)
+
+    sp = sub.add_parser("export-recursive-verification-key",
+                        help="Export Recursive verifying key")
+    sp.add_argument("-c", "--num_proofs_to_check", type=int, required=True)
+    sp.add_argument("-i", "--num_inputs", type=int, required=True)
+    sp.add_argument("-m", "--srs_monomial_form", required=True)
+    sp.add_argument("-o", "--old_vk", default="vk.bin",
+                    help="inner verification key (the inner domain and selectors "
+                         "are part of the aggregation circuit's structure)")
+    sp.add_argument("-v", "--vk", default="recursive_vk.bin")
+    sp.add_argument("--overwrite", action="store_true")
+    sp.set_defaults(func=cmd_export_recursive_vk)
+
+    sp = sub.add_parser("recursive-prove", help="Aggregate multiple proofs")
+    sp.add_argument("-m", "--srs_monomial_form", required=True)
+    sp.add_argument("-f", "--old_proof_list", required=True)
+    sp.add_argument("-v", "--old_vk", default="vk.bin")
+    sp.add_argument("-n", "--new_proof", default="recursive_proof.bin")
+    sp.add_argument("-j", "--proofjson", default="recursive_proof.json")
+    sp.add_argument("--overwrite", action="store_true")
+    sp.set_defaults(func=cmd_recursive_prove)
+
+    sp = sub.add_parser("recursive-verify", help="Verify recursive proof")
+    sp.add_argument("-p", "--proof", default="recursive_proof.bin")
+    sp.add_argument("-v", "--verification_key", dest="vk", default="recursive_vk.bin")
+    sp.set_defaults(func=cmd_recursive_verify)
+
+    sp = sub.add_parser("check-aggregation", help="Check proofs aggregation")
+    sp.add_argument("-o", "--old_proof_list", required=True)
+    sp.add_argument("-v", "--old_vk", default="vk.bin")
+    sp.add_argument("-n", "--new_proof", default="recursive_proof.bin")
+    sp.set_defaults(func=cmd_check_aggregation)
 
     return p
 

@@ -76,3 +76,49 @@ def mul_add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) 
     if not a.is_cuda:
         return mont.mul_add(spec, a, b, c)
     return _launch("mul_add", spec, a, b, c)
+
+
+# -- compositions over K1 ----------------------------------------------------
+
+def prefix_products(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products by Hillis-Steele rounds, one K1 launch a
+    round (backend_jax._prefix_products_body)."""
+    n = x.shape[0]
+    ones = spec.const(1, n, x.device)
+    p = x
+    for i in range(max(1, (n - 1).bit_length())):
+        d = 1 << i
+        p = mul(spec, p, torch.cat([ones[:d], p[:n - d]]))
+    return p
+
+
+def suffix_products(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """S_i = prod_{j>=i} x_j (Hillis-Steele)."""
+    n = x.shape[0]
+    ones = spec.const(1, n, x.device)
+    p = x
+    for i in range(max(1, (n - 1).bit_length())):
+        d = 1 << i
+        p = mul(spec, p, torch.cat([p[d:], ones[:d]]))
+    return p
+
+
+def batch_inverse(spec: FieldSpec, v: torch.Tensor) -> torch.Tensor:
+    """Montgomery batch inversion of Montgomery rows, zeros mapping to
+    zero (pallas_kernels.py batch_inverse): two product scans, one scalar
+    inverse, two combining products.  The scalar inverse of the total is
+    taken on the host (one 32-byte read back), where the JAX package runs a
+    one-lane Fermat ladder on the device."""
+    n = v.shape[0]
+    one = spec.const(1, n, v.device)
+    zero_mask = (v == 0).all(dim=1, keepdim=True)
+    x = torch.where(zero_mask, one, v)
+    pre = prefix_products(spec, x)
+    suf = suffix_products(spec, x)
+    total = spec.from_limbs_np(mont.to_numpy(
+        mul(spec, pre[n - 1:n].contiguous(), spec.const_raw(1, 1, v.device))))[0]
+    pre_excl = torch.cat([one[:1], pre[:n - 1]])
+    suf_excl = torch.cat([suf[1:], one[:1]])
+    out = mul(spec, pre_excl, suf_excl)
+    out = mul(spec, out, spec.const(pow(total, -1, spec.p), n, v.device))
+    return torch.where(zero_mask, torch.zeros_like(out), out)

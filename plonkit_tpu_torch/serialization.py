@@ -340,6 +340,27 @@ def load_crs_g1_limbs(filename: str, count: int = None):
     return x, y, inf
 
 
+def save_crs_g1_limbs(filename: str, x, y, inf, g2_points) -> None:
+    """Write an SRS key (the layout of Crs.write) from canonical limb rows,
+    the inverse of load_crs_g1_limbs: x, y [N, 8] uint32, inf [N] bool,
+    and the G2 points.  No per-point python ints."""
+    import numpy as np
+    inf = np.asarray(inf, dtype=bool)
+
+    def to_be(limbs):
+        le = np.ascontiguousarray(limbs, dtype="<u4").view(np.uint8)   # [N, 32]
+        return le[:, ::-1]
+    rows = np.concatenate([to_be(x), to_be(y)], axis=1)
+    rows[inf] = 0
+    rows[inf, 0] = _INFINITY_FLAG
+    with open(filename, "wb") as f:
+        write_u64(f, rows.shape[0])
+        f.write(np.ascontiguousarray(rows).tobytes())
+        write_u64(f, len(g2_points))
+        for p in g2_points:
+            write_g2(f, p)
+
+
 class CrsHandle:
     """Lazy SRS accessor: parses the header/G2 eagerly (tiny) and exposes the
     G1 section either as numpy limb arrays (fast path, for the MSM bases)

@@ -20,15 +20,14 @@ _DST_CHALLENGE = (2).to_bytes(4, "big")
 
 
 def make_transcript(kind: str = "keccak"):
-    """Transcript factory: "keccak" (RollingKeccakTranscript-compatible).
-    "rescue" (the algebraic transcript of `prove -t rescue`) arrives with
-    the recursive slice of the port and raises until then."""
+    """Transcript factory: "keccak" (RollingKeccakTranscript-compatible) or
+    "rescue" (algebraic, cheap to re-derive inside the aggregation circuit;
+    the reference's `prove -t rescue`, src/plonk.rs:160-170)."""
     if kind == "keccak":
         return Transcript()
     if kind == "rescue":
-        raise NotImplementedError(
-            "the rescue transcript is ported with the recursive slice "
-            "(plonkit_tpu/recursive/rescue.py)")
+        from .recursive.rescue import RescueTranscript
+        return RescueTranscript()
     raise ValueError(f"unknown transcript type: {kind!r}")
 
 

@@ -13,6 +13,7 @@ import shutil
 import struct
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -178,9 +179,24 @@ def test_circuit_file_resolution(tmp_path, monkeypatch):
 
 
 def test_rescue_transcript_fails(out, tmp_path):
-    with pytest.raises(NotImplementedError, match="rescue"):
-        port("prove", "-m", str(out / "setup.key"), "-c", CIRCUIT, "-w", WITNESS,
-             "-t", "rescue", "-p", str(tmp_path / "p.bin"))
+    """The rescue transcript is ported: `prove -t rescue` writes the JAX
+    package's rescue proof, which `verify -t rescue` accepts; verifying a
+    proof under the other transcript fails with exit 400, and an unknown
+    transcript raises and writes nothing."""
+    key = str(out / "setup.key")
+    port("prove", "-m", key, "-c", CIRCUIT, "-w", WITNESS, "-t", "rescue",
+         "-p", str(tmp_path / "r.bin"), "-j", str(tmp_path / "r.json"),
+         "-i", str(tmp_path / "r_pub.json"))
+    assert read(tmp_path, "r.bin") == read(Path(FIXTURES), "proof_0.bin")
+    port("verify", "-p", str(tmp_path / "r.bin"), "-v", str(out / "port_vk.bin"), "-t", "rescue")
+    for proof, transcript in (("r.bin", "keccak"), ("port_proof.bin", "rescue")):
+        path = tmp_path / proof if proof == "r.bin" else out / proof
+        with pytest.raises(SystemExit) as exc:
+            port("verify", "-p", str(path), "-v", str(out / "port_vk.bin"), "-t", transcript)
+        assert exc.value.code == 400
+    with pytest.raises(ValueError, match="unknown transcript"):
+        port("prove", "-m", key, "-c", CIRCUIT, "-w", WITNESS, "-t", "blake2",
+             "-p", str(tmp_path / "p.bin"))
     assert not (tmp_path / "p.bin").exists()
 
 

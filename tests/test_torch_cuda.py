@@ -341,3 +341,45 @@ def test_msm_vec_end_many_on_the_card_matches_native(card):
     got = ctx.msm_vec_end_many(handles)
     assert mk.launches["combine"] == before + 1
     assert got == [host.msm_rows(mont.FR.to_limbs_np(r).view(np.uint8)) for r in rows]
+
+
+def test_device_srs_matches_serial_srs(card):
+    """gpu/fixed_base on the card (32 K7 launches, K1 for the inversion)
+    gives srs.py's points."""
+    from plonkit_tpu_torch.gpu import fixed_base
+    n = 1 << 12
+    before = (mk.launches["padd"], fk.launches["mul"])
+    x, y, inf = fixed_base.gen_crs_g1_device(12, 42, device=card)
+    assert mk.launches["padd"] == before[0] + fixed_base.NUM_WINDOWS
+    assert fk.launches["mul"] > before[1]
+    pts = [None if i else (a, b) for a, b, i in
+           zip(mont.FQ.from_limbs_np(x), mont.FQ.from_limbs_np(y), inf)]
+    assert pts == dev_srs_g1(n, 42)
+
+
+@pytest.mark.parametrize("method", ["fma_acc", "add_into", "mul_into", "add_scalar",
+                                    "grand_product", "offload_onload"])
+def test_extended_backend_methods_match_cpu(card, method):
+    """The TorchBackend methods of the extended prover on the card against
+    the same methods on the CPU (the plain versions)."""
+    cpu, gpu = TorchBackend("cpu"), TorchBackend("cuda")
+    vs = [rand_rows(mont.FR, 1 << 12, seed) for seed in (7, 8, 9)]
+
+    def run(b, dev):
+        acc, x, y = (FrVec(t.to(dev)) for t in vs)
+        if method == "fma_acc":
+            return b.fma_acc(acc, x, y)
+        if method == "add_into":
+            return b.add_into(acc, x)
+        if method == "mul_into":
+            return b.mul_into(acc, x)
+        if method == "add_scalar":
+            return b.add_scalar(x, 0xC0FFEE)
+        if method == "grand_product":
+            return b.grand_product(x)
+        return b.onload(b.offload(x))
+    before = dict(fk.launches)
+    got = run(gpu, card)
+    if method == "fma_acc":
+        assert fk.launches["mul_add"] == before["mul_add"] + 1
+    assert torch.equal(got.data.cpu(), run(cpu, "cpu").data)

@@ -31,8 +31,12 @@ names = [m.name for m in pkgutil.walk_packages(plonkit_tpu_torch.__path__,
                                                "plonkit_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-missing = {"plonkit_tpu_torch.cli", "plonkit_tpu_torch.__main__", "plonkit_tpu_torch.solidity",
-           "plonkit_tpu_torch.frontend.witness"} - set(names)
+missing = {"plonkit_tpu_torch." + m for m in (
+    "cli", "__main__", "solidity", "frontend.witness", "gpu.fixed_base", "plonk.extended",
+    "recursive", "recursive.aggregation", "recursive.batch", "recursive.cs",
+    "recursive.ec_gadget", "recursive.franklin", "recursive.nonnative", "recursive.rescue",
+    "recursive.rescue_gadget", "recursive.rns", "recursive.verifier_gadget",
+    "recursive.vk_tree")} - set(names)
 assert not missing, missing
 import chip_smoke
 assert sys.modules["jax"] is None
@@ -63,7 +67,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     proc = _run(["-c", BLOCKED_IMPORTS], REPO, {"PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr[-3000:]
     count = int(proc.stdout.split("IMPORTED")[1])
-    assert count >= 20, proc.stdout
+    assert count >= 40, proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,0 +1,208 @@
+"""The port's recursive package (plonkit_tpu_torch/recursive/) against the
+JAX package's on the CPU:
+
+- each gadget (nonnative, ec_gadget, rescue_gadget) built from seeded
+  inputs through each package's own modules gives the same output values,
+  gate count, wires, selectors and witness; rns and vk_tree give the same
+  values;
+- the aggregation circuit of the in-repo fixture scratch/recursive_r5 (one
+  rescue proof of the domain-64 circuit) has the same 1,611,923 gates,
+  wires, selectors, witness and public input in both packages;
+- off-circuit batched verification and the host aggregate of the
+  fixture scratch/recursive_r22's proofs.
+
+tests/test_torch_aggregation.py holds the fixture's aggregate and the
+recursive CLI.
+"""
+
+import io
+import os
+import random
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import plonkit_tpu.recursive.aggregation as ref_aggregation
+import plonkit_tpu.recursive.batch as ref_batch
+import plonkit_tpu.recursive.cs as ref_cs
+import plonkit_tpu.recursive.ec_gadget as ref_ec_gadget
+import plonkit_tpu.recursive.nonnative as ref_nonnative
+import plonkit_tpu.recursive.rescue as ref_rescue
+import plonkit_tpu.recursive.rescue_gadget as ref_rescue_gadget
+import plonkit_tpu.recursive.rns as ref_rns
+import plonkit_tpu.recursive.vk_tree as ref_vk_tree
+import plonkit_tpu.serialization as ref_serialization
+from plonkit_tpu_torch import native
+from plonkit_tpu_torch.curve import G1_GEN, g1_mul
+from plonkit_tpu_torch.fields import FQ_MODULUS as P, FR_MODULUS as R
+from plonkit_tpu_torch.plonk.extended import validate_witness2
+from plonkit_tpu_torch.recursive import (aggregation, batch, cs, ec_gadget, nonnative, rescue,
+                                         rescue_gadget, rns, vk_tree)
+from plonkit_tpu_torch.serialization import Proof, VerificationKey
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+R5 = os.path.join(REPO, "scratch", "recursive_r5")
+R22 = os.path.join(REPO, "scratch", "recursive_r22")
+SEED = 20241017
+
+PORT = SimpleNamespace(cs=cs, nonnative=nonnative, ec_gadget=ec_gadget, rescue=rescue,
+                       rescue_gadget=rescue_gadget, vk_tree=vk_tree)
+REF = SimpleNamespace(cs=ref_cs, nonnative=ref_nonnative, ec_gadget=ref_ec_gadget,
+                      rescue=ref_rescue, rescue_gadget=ref_rescue_gadget, vk_tree=ref_vk_tree)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _env(tmp_path_factory):
+    old_threads, old_build = torch.get_num_threads(), native.BUILD_DIR
+    torch.set_num_threads(1)
+    native.BUILD_DIR = str(tmp_path_factory.mktemp("native_build"))
+    yield
+    torch.set_num_threads(old_threads)
+    native.BUILD_DIR = old_build
+
+
+def _structure(c):
+    return (c.num_gates, c.wires, c.sels, c.values, c.input_vars)
+
+
+# -- gadgets -----------------------------------------------------------------
+
+def _nonnative_gadget(m):
+    rng = random.Random(SEED)
+    c = m.cs.CsBuilder()
+    nn = m.nonnative
+    a_v, b_v, x_v = (rng.randrange(P) for _ in range(3))
+    a, b, x = nn.fq_alloc(c, a_v), nn.fq_alloc(c, b_v), nn.fq_alloc(c, x_v)
+    prod = nn.fq_mul(c, a, b)
+    s = nn.fq_sub(c, nn.fq_add(c, prod, x), nn.fq_scale(c, nn.fq_neg(c, b), 3))
+    y = nn.fq_alloc(c, (a_v * b_v + x_v) % P)
+    nn.fq_mul(c, a, b, expected=nn.fq_sub(c, y, x))
+    nn.fq_enforce_equal(c, nn.fq_constant(c, s.value % P), s)
+    return c, [prod.value, s.value]
+
+
+def _ec_gadget(m):
+    rng = random.Random(SEED)
+    c = m.cs.CsBuilder()
+    eg = m.ec_gadget
+    pts = [g1_mul(G1_GEN, rng.randrange(1, R)) for _ in range(3)]
+    scalars = [rng.randrange(1 << 16) for _ in range(3)]
+    p, q = eg.point_alloc(c, pts[0]), eg.point_alloc(c, pts[1])
+    outs = [eg.ec_add(c, p, q), eg.ec_double(c, p), eg.ec_neg(c, q)]
+    pairs = [(eg.point_alloc(c, pt), c.alloc(s)) for pt, s in zip(pts, scalars)]
+    outs.append(eg.ec_msm(c, pairs, width=16))
+    return c, [o.point for o in outs]
+
+
+def _rescue_gadget(m):
+    rng = random.Random(SEED)
+    c = m.cs.CsBuilder()
+    rg = m.rescue_gadget
+    inputs = [rng.randrange(R) for _ in range(5)]
+    h = rg.rescue_hash_gadget(c, [c.alloc(v) for v in inputs])
+    t = rg.RescueTranscriptGadget(c)
+    challenges = []
+    for v in inputs:
+        t.update_fr(c.alloc(v))
+        challenges.append(t.get_challenge().value)
+    leaves = [m.rescue.rescue_hash([i, i + 1]) for i in range(8)]
+    levels = [leaves]
+    while len(levels[-1]) > 1:
+        cur = levels[-1]
+        levels.append([m.rescue.rescue_hash([cur[i], cur[i + 1]])
+                       for i in range(0, len(cur), 2)])
+    leaf, path = m.vk_tree.merkle_query(levels, 5)
+    bits = [c.alloc((5 >> i) & 1) for i in range(len(path))]
+    rg.merkle_verify_gadget(c, c.alloc(leaf), bits, [c.alloc(v) for v in path],
+                            c.alloc(levels[-1][0]))
+    return c, [h.value, challenges, m.rescue.rescue_hash(inputs)]
+
+
+@pytest.mark.parametrize("build", [_nonnative_gadget, _ec_gadget, _rescue_gadget],
+                         ids=["nonnative", "ec_gadget", "rescue_gadget"])
+def test_gadget_matches_reference(build):
+    c, outs = build(PORT)
+    ref_c, ref_outs = build(REF)
+    assert outs == ref_outs
+    assert _structure(c) == _structure(ref_c)
+    validate_witness2(c.setup(), c.wire_columns(), c.public_inputs())
+
+
+def test_rns_matches_reference():
+    rng = np.random.default_rng(SEED)
+    for _ in range(8):
+        x = int.from_bytes(rng.bytes(32), "little") % P
+        assert rns.fq_to_limbs(x) == ref_rns.fq_to_limbs(x)
+        assert rns.fq_to_double_limbs(x) == ref_rns.fq_to_double_limbs(x)
+        assert rns.limbs_to_fq(rns.fq_to_limbs(x)) == x
+        assert rns.double_limbs_to_fq(rns.fq_to_double_limbs(x)) == x
+
+
+def test_vk_tree_matches_reference():
+    vk = VerificationKey.load(os.path.join(R22, "vk.bin"))
+    ref_vk = ref_serialization.VerificationKey.load(os.path.join(R22, "vk.bin"))
+    assert vk_tree.vk_leaf_encoding(vk) == ref_vk_tree.vk_leaf_encoding(ref_vk)
+    assert vk_tree.build_vk_tree([vk]) == ref_vk_tree.build_vk_tree([ref_vk])
+    assert vk_tree.get_vk_tree_root_hash(vk) == ref_vk_tree.get_vk_tree_root_hash(ref_vk)
+
+
+def test_rescue_aggregate_matches_reference():
+    """The per-proof challenge and the aggregated pair of the fixture's two
+    rescue proofs; an invalid proof makes the aggregate None."""
+    vk = VerificationKey.load(os.path.join(R22, "vk.bin"))
+    proofs = [Proof.load(os.path.join(R22, f"proof_{i}.bin")) for i in (0, 1)]
+    ref_vk = ref_serialization.VerificationKey.load(os.path.join(R22, "vk.bin"))
+    ref_proofs = [ref_serialization.Proof.load(os.path.join(R22, f"proof_{i}.bin"))
+                  for i in (0, 1)]
+    assert aggregation.derive_rho(vk, proofs[0]) == \
+        ref_aggregation.derive_rho(ref_vk, ref_proofs[0])
+    agg = aggregation.compute_aggregate(vk, proofs)
+    assert agg is not None
+    assert agg == ref_aggregation.compute_aggregate(ref_vk, ref_proofs)
+    assert aggregation.expected_aggregated_input(vk, proofs) == \
+        ref_aggregation.expected_aggregated_input(ref_vk, ref_proofs)
+    bad = Proof.read(io.BytesIO(proofs[1].to_bytes()))
+    bad.wire_values_at_z[0] = (bad.wire_values_at_z[0] + 1) % R
+    assert aggregation.compute_aggregate(vk, [proofs[0], bad]) is None
+
+
+def test_batch_verify_matches_reference():
+    """Off-circuit batched verification (one pairing for N keccak proofs) of
+    the fixture's two witnesses, proved here by the port."""
+    from plonkit_tpu_torch.api import SetupForProver
+    from plonkit_tpu_torch.frontend import CircomCircuit, load_r1cs, load_witness
+    from plonkit_tpu_torch.serialization import CrsHandle
+    from test_torch_prove import KEY
+    r1cs = load_r1cs(os.path.join(R22, "circuit.r1cs.json"))
+    setup = SetupForProver(CircomCircuit(r1cs=r1cs), CrsHandle(KEY), device="cpu")
+    vk = VerificationKey.load(os.path.join(R22, "vk.bin"))
+    proofs = [setup.prove(CircomCircuit(r1cs=r1cs, witness=load_witness(
+        os.path.join(R22, f"witness_{i}.json")))) for i in (0, 1)]
+    ref_vk = ref_serialization.VerificationKey.load(os.path.join(R22, "vk.bin"))
+    ref_proofs = [ref_serialization.Proof.read(io.BytesIO(p.to_bytes())) for p in proofs]
+    assert batch.aggregate_proofs(vk, proofs) == ref_batch.aggregate_proofs(ref_vk, ref_proofs)
+    assert batch.verify_batch(vk, proofs)
+    bad = Proof.read(io.BytesIO(proofs[1].to_bytes()))
+    bad.wire_values_at_z[0] = (bad.wire_values_at_z[0] + 1) % R
+    assert not batch.verify_batch(vk, [proofs[0], bad])
+
+
+# -- the aggregation circuit of scratch/recursive_r5 ---------------------------
+
+def test_aggregation_circuit_matches_reference_at_full_size():
+    vk = VerificationKey.load(os.path.join(R5, "vk.bin"))
+    proof = Proof.load(os.path.join(R5, "proof_0.bin"))
+    c, limbs = aggregation.build_aggregation_circuit(vk, [proof])
+    assert c.num_gates == 1_611_923
+    assert len(c.values) == 3_923_821
+    ref_c, ref_limbs = ref_aggregation.build_aggregation_circuit(
+        ref_serialization.VerificationKey.load(os.path.join(R5, "vk.bin")),
+        [ref_serialization.Proof.load(os.path.join(R5, "proof_0.bin"))])
+    assert limbs == ref_limbs
+    assert c.public_inputs() == ref_c.public_inputs()
+    assert _structure(c) == _structure(ref_c)
+    agg = aggregation.AggregatedProof.load(os.path.join(R5, "recursive_proof.bin"))
+    assert c.public_inputs() == agg.proof.input_values
+    assert limbs == agg.aggr_limbs
