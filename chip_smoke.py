@@ -11,12 +11,12 @@ Phases, each printing a JSON line with its wall seconds:
    instructions of K1 (one Montgomery product), K6 and K8 from the CUDA
    toolkit's cuobjdump, then the card's name and power limit as nvidia-smi
    reports them;
-2. srs: the tau = 42 dev SRS of 2^21 points, made on the card by the CLI's
-   `setup -p 21` (gpu/fixed_base.py: 32 K7 launches for the windowed
+2. srs: the tau = 42 dev SRS of 2^22 points, made on the card by the CLI's
+   `setup -p 22` (gpu/fixed_base.py: 32 K7 launches for the windowed
    ladder, K1 for the tau powers and the inversion of Z), run in this
    process so that its launches can be counted; the key's first 2^12
    points must be byte-equal to srs.py's (serial python), and its G2 pair
-   to [G2, 42 G2].  The 2^20 phases read the first 2^20 points of this key;
+   to [G2, 42 G2].  The 2^20 and 2^21 phases read prefixes of this key;
 3. kernels: every kernel on the card against its plain PyTorch version on
    the card, on the same inputs, equal bit for bit (integer arithmetic):
    K1 mul, K2a add, K2b sub, K4 mul_add at 2^20 elements and K3
@@ -68,21 +68,37 @@ Phases, each printing a JSON line with its wall seconds:
    process may rebuild a kernel library;
 9. recursive CLI on scratch/recursive_r5 (one rescue proof of the domain-64
    circuit; the JAX package's aggregate at 2^21): the 5 recursive
-   subcommands, each once, over the 2^21 key:
+   subcommands, each once, over the key:
    export-recursive-verification-key and recursive-prove at once (each
    synthesises the 1,611,923-gate aggregation circuit), then
    recursive-verify (exit 0), recursive-verify of a copy with one flipped
    byte (exit 144), check-aggregation (exit 0) and
    generate-recursive-verifier -i 2; recursive_vk.bin, recursive_proof.bin
    and recursive_verifier.sol must equal the fixture's byte for byte.
-   Phases 7, 8 and 9 run at the same time, and so do the calls of each
-   that need no file of another: their seconds are wall times of processes
-   that share the host and the card;
-10. recursive path in this process: prove_aggregation of the same proof
-   under torch.profiler, with every kernel's launches counted from 0 (each
-   must launch), its stage times (the prover rounds x r1 ... x r5),
+   Beside them, export-recursive-verification-key -c 2 -i 2 of the
+   two-proof circuit of scratch/recursive_r22 (2,307,899 gates, a 2^22
+   domain): its recursive_vk.bin must equal that fixture's, made by the
+   JAX package.  Phases 7, 8 and 9 run at the same time, and so do the
+   calls of each that need no file of another: their seconds are wall
+   times of processes that share the host and the card;
+10. recursive path in this process: prove_aggregation of the two proofs
+   scratch/recursive_r22/proof_{0,1}.bin at a 2^22 domain under
+   torch.profiler, with every kernel's launches counted from 0 (each must
+   launch), its stage times (the prover rounds x r1 ... x r5),
    torch.cuda.max_memory_allocated(), the device's busy time and idle
-   share; its bytes must equal the fixture's recursive_proof.bin.
+   share; verify_aggregation with phase 9's two-proof vk must accept it and
+   reject a copy with one flipped byte of the outer public input, and
+   check_aggregation must accept it.  Then the split coset transforms that
+   only this size reaches (backend_torch.SPLIT_NTT_MIN = 2^24): the
+   2^24-point coset LDE of one 2^22-point vector and its coset iNTT, split
+   and monolithic (the threshold raised in this process), equal bit for
+   bit, and the iNTT giving the vector back;
+11. contract: the rendered verifiers run in the port's interpreter
+   (solvm.py, through contract.py) on the card's proofs: phase 7's
+   verifier.sol on its keccak proof.json / public.json, phase 9's
+   recursive_verifier.sol on its recursive_proof.json, and the recursive
+   verifier of phase 9's two-proof vk on phase 10's aggregate; each must
+   accept the proof and reject every tampered copy.
 
 Then the kernels line (each row with its launches on the main path of
 phase 6, on the recursive path of phase 10 and in the device SRS of phase
@@ -111,7 +127,10 @@ KERNEL_LOG2 = 20        # width of K1-K5 and K7
 SWEEP_LOG2 = 16         # scalars of the K6 one-window check
 CROSS_LOG2 = 10         # phase 5 domain
 MAIN_LOG2 = 20          # phase 6 domain
-SRS_LOG2 = 21           # the device SRS: the aggregation circuit's domain
+ONE_PROOF_LOG2 = 21     # the aggregation circuit of one proof (phase 9)
+PAIR_LOG2 = 22          # the aggregation circuit of two proofs (phases 9, 10)
+SRS_LOG2 = PAIR_LOG2    # the device SRS
+SPLIT_FACTOR = 4        # the prover's LDE factor: 2^24-point transforms at 2^22
 SRS_CHECK_LOG2 = 12     # key prefix held against srs.py byte for byte
 DEVICE = "cuda"
 
@@ -130,7 +149,7 @@ MADD_MULS, ADD_MULS, DBL_MULS = 11, 16, 7  # products of madd, add, double
 REDUCTION_LAUNCHES_MAX = 8                 # K7r + K7w + K7 per commitment
 K8_BATCH = 11                              # MSMs of the K8 row: the vk's group
 REPO = os.path.dirname(os.path.abspath(__file__))
-FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit of phase 7
+FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit, its pair
 AGG_FIXTURES = os.path.join(REPO, "scratch", "recursive_r5")  # the 2^21 aggregate of phase 9
 SOURCES = {
     "K1 mul": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:149"),
@@ -268,7 +287,7 @@ def cli_together(*calls, cwd: str) -> dict:
 
 
 def phase_srs(tmp: str) -> str:
-    """`setup -p 21` through the CLI's entry point, in this process."""
+    """`setup -p 22` through the CLI's entry point, in this process."""
     import torch
     from plonkit_tpu_torch import cli as port_cli
     from plonkit_tpu_torch.curve import G2_GEN, g2_mul
@@ -907,10 +926,34 @@ def phase_cli_full(tmp: str, key: str, circuit, vk_bytes: bytes, proof_bytes: by
         raise AssertionError(f"CLI and API bytes differ at 2^{MAIN_LOG2}: {same}")
 
 
-def phase_recursive_cli(tmp: str, key: str) -> None:
-    """The 5 recursive subcommands on scratch/recursive_r5 over the 2^21
-    key: their outputs must be the fixture's bytes."""
+def _flip_outer_input(blob: bytes) -> bytes:
+    """A recursive_proof.bin with one bit of its outer public input flipped."""
     from plonkit_tpu_torch.recursive.aggregation import AggregatedProof
+    out = bytearray(blob)
+    outer = AggregatedProof.read(io.BytesIO(blob)).proof.to_bytes()
+    out[len(out) - len(outer) + 16 + 31] ^= 1      # n, num_inputs, then input 0
+    return bytes(out)
+
+
+def _first_vk2_difference(path: str, want: str):
+    """The first field (and item) of two recursive vks that differs, or
+    None: where to look when their bytes differ."""
+    import dataclasses
+    from plonkit_tpu_torch.plonk.extended import VerificationKey2
+    a, b = VerificationKey2.load(path), VerificationKey2.load(want)
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if va != vb:
+            if isinstance(va, list) and len(va) == len(vb):
+                i = next(i for i, (x, y) in enumerate(zip(va, vb)) if x != y)
+                return f"{f.name}[{i}]: {va[i]} != {vb[i]}"
+            return f"{f.name}: {va} != {vb}"
+    return None
+
+
+def phase_recursive_cli(tmp: str, key: str) -> None:
+    """The 5 recursive subcommands on scratch/recursive_r5 (one proof, a 2^21
+    domain): their outputs must be the fixture's bytes."""
     t_all = time.perf_counter()
     d = os.path.join(tmp, "recursive")
     os.makedirs(d)
@@ -923,9 +966,7 @@ def phase_recursive_cli(tmp: str, key: str) -> None:
         ("recursive-prove", ["recursive-prove", "-m", key, "-f", "old_proof_list.txt",
                              "-v", old_vk]), cwd=d)
     with open(os.path.join(d, "recursive_proof.bin"), "rb") as f:
-        blob = bytearray(f.read())
-    outer = AggregatedProof.read(io.BytesIO(bytes(blob))).proof.to_bytes()
-    blob[len(blob) - len(outer) + 16 + 31] ^= 1     # a bit of the outer public input
+        blob = _flip_outer_input(f.read())
     with open(os.path.join(d, "tampered.bin"), "wb") as f:
         f.write(blob)
     s.update(cli_together(
@@ -936,24 +977,50 @@ def phase_recursive_cli(tmp: str, key: str) -> None:
                                          "-i", "2", "-s", "recursive_verifier.sol"]), cwd=d))
     same = {name: _same_file(os.path.join(d, name), os.path.join(AGG_FIXTURES, name))
             for name in ("recursive_vk.bin", "recursive_proof.bin", "recursive_verifier.sol")}
-    emit({"phase": "recursive_cli", "domain": 1 << SRS_LOG2, "identical_to_fixture": same,
+    emit({"phase": "recursive_cli", "domain": 1 << ONE_PROOF_LOG2, "identical_to_fixture": same,
           "seconds": {k: round(v, 3) for k, v in s.items()},
           "total_s": round(time.perf_counter() - t_all, 3)})
     if not all(same.values()):
-        raise AssertionError(f"recursive CLI outputs differ from the fixture's: {same}")
+        where = _first_vk2_difference(os.path.join(d, "recursive_vk.bin"),
+                                      os.path.join(AGG_FIXTURES, "recursive_vk.bin"))
+        raise AssertionError(f"recursive CLI outputs differ from the fixture's: {same}; "
+                             f"first differing vk field: {where}")
 
 
-def phase_recursive(tmp: str, key: str) -> dict:
-    """One prove_aggregation in this process under torch.profiler: launches
-    of every kernel from 0, stage times, peak device memory, device busy
-    time and idle share; its bytes must be the fixture's."""
+def phase_recursive_vk_pair(tmp: str, key: str) -> str:
+    """export-recursive-verification-key -c 2 -i 2 of scratch/recursive_r22's
+    circuit, a CLI process: its recursive_vk.bin must equal the fixture's
+    (the JAX package's, 2,307,899 gates, n = 2^22 - 1).  Returns its path."""
+    d = os.path.join(tmp, "recursive_pair")
+    os.makedirs(d)
+    seconds = cli("export-recursive-verification-key", "-c", "2", "-i", "2", "-m", key,
+                  "-o", os.path.join(FIXTURES, "vk.bin"), cwd=d)
+    path = os.path.join(d, "recursive_vk.bin")
+    want = os.path.join(FIXTURES, "recursive_vk.bin")
+    where = _first_vk2_difference(path, want)
+    emit({"phase": "recursive_vk_pair", "proofs": 2, "domain": 1 << PAIR_LOG2,
+          "identical_to_fixture": _same_file(path, want), "first_difference": where,
+          "seconds": round(seconds, 3)})
+    if not _same_file(path, want):
+        raise AssertionError(f"the two-proof recursive vk differs from the fixture's: {where}")
+    return path
+
+
+def phase_recursive(key: str, rec_vk_path: str):
+    """prove_aggregation of scratch/recursive_r22's two proofs in this
+    process under torch.profiler: launches of every kernel from 0, stage
+    times, peak device memory, device busy time and idle share; then
+    verify_aggregation (and a tampered copy) and check_aggregation.
+    Returns the launches and the aggregate."""
     import torch
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.backend_torch import TorchBackend
-    from plonkit_tpu_torch.recursive.aggregation import prove_aggregation
+    from plonkit_tpu_torch.plonk.extended import VerificationKey2
+    from plonkit_tpu_torch.recursive.aggregation import (AggregatedProof, check_aggregation,
+                                                         prove_aggregation, verify_aggregation)
     from plonkit_tpu_torch.serialization import CrsHandle, Proof, VerificationKey
-    vk = VerificationKey.load(os.path.join(AGG_FIXTURES, "vk.bin"))
-    proofs = [Proof.load(os.path.join(AGG_FIXTURES, "proof_0.bin"))]
+    vk = VerificationKey.load(os.path.join(FIXTURES, "vk.bin"))
+    proofs = [Proof.load(os.path.join(FIXTURES, f"proof_{i}.bin")) for i in (0, 1)]
     backend = TorchBackend(DEVICE)
     crs = CrsHandle(key)
     torch.cuda.synchronize()
@@ -969,22 +1036,114 @@ def phase_recursive(tmp: str, key: str) -> dict:
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     stages = dict(profiling.last_timings)
-    agg.save(os.path.join(tmp, "recursive_proof_api.bin"))
-    same = _same_file(os.path.join(tmp, "recursive_proof_api.bin"),
-                      os.path.join(AGG_FIXTURES, "recursive_proof.bin"))
     kernels, busy, by_kernel = device_activity(prof)
-    emit({"phase": "recursive", "domain": 1 << SRS_LOG2, "n": agg.proof.n,
-          "identical_to_fixture": same, "prove_aggregation_s": wall,
-          "stages_s": {k: round(v, 3) for k, v in stages.items()},
+    t0 = time.perf_counter()
+    rec_vk = VerificationKey2.load(rec_vk_path)
+    blob = io.BytesIO()
+    agg.write(blob)
+    tampered = AggregatedProof.read(io.BytesIO(_flip_outer_input(blob.getvalue())))
+    checks = {"verify_aggregation": verify_aggregation(rec_vk, agg, vk),
+              "tampered_rejected": not verify_aggregation(rec_vk, tampered, vk),
+              "check_aggregation": check_aggregation(vk, proofs, agg),
+              "domain_2pow22": agg.proof.n + 1 == 1 << PAIR_LOG2}
+    emit({"phase": "recursive", "proofs": len(proofs), "domain": agg.proof.n + 1,
+          "n": agg.proof.n, "checks": checks, "check_s": round(time.perf_counter() - t0, 3),
+          "prove_aggregation_s": wall, "stages_s": {k: round(v, 3) for k, v in stages.items()},
           "launches": launches, "max_memory_allocated_bytes": peak,
           "device_events": len(kernels), "device_busy_s": busy,
           "device_idle_share": 1 - busy / wall, "by_kernel": by_kernel})
-    if not same:
-        raise AssertionError("prove_aggregation gives other bytes than the fixture's")
+    if not all(checks.values()):
+        raise AssertionError(f"the two-proof aggregate at 2^{PAIR_LOG2} fails: {checks}")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched on the recursive path: {idle}")
-    return launches
+    return launches, agg
+
+
+def phase_split_ntt() -> None:
+    """The 2^24-point coset LDE of one random 2^22-point vector, and its
+    coset iNTT, through TorchBackend's split transforms (the path of a 2^22
+    domain) and through the monolithic ones (SPLIT_NTT_MIN raised in this
+    process): equal bit for bit, and the iNTT gives the vector back."""
+    import torch
+    from plonkit_tpu_torch import backend_torch
+    from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
+    from plonkit_tpu_torch.gpu.mont import to_tensor
+    t_all = time.perf_counter()
+    n = 1 << PAIR_LOG2
+    if n * SPLIT_FACTOR < backend_torch.SPLIT_NTT_MIN:
+        raise AssertionError("a 2^22 domain no longer reaches the split transforms")
+    b = TorchBackend(DEVICE)
+    v = FrVec(to_tensor(_random_fr_rows(np.random.default_rng(SEED + 3), n, 0), DEVICE))
+    lde, ms = {}, {}
+    for route, threshold in (("split", backend_torch.SPLIT_NTT_MIN), ("monolithic", 1 << 62)):
+        saved, backend_torch.SPLIT_NTT_MIN = backend_torch.SPLIT_NTT_MIN, threshold
+        try:       # each timed after one untimed call (the tables of its size)
+            b.coset_lde(v, SPLIT_FACTOR)
+            lde[route], ms[f"coset_lde {route}"] = _timed_once(
+                lambda: b.coset_lde(v, SPLIT_FACTOR))
+            b.coset_intt(lde["split"])
+            lde[f"{route} intt"], ms[f"coset_intt {route}"] = _timed_once(
+                lambda: b.coset_intt(lde["split"]))
+        finally:
+            backend_torch.SPLIT_NTT_MIN = saved
+    back = lde["split intt"].data
+    same = {"coset_lde": torch.equal(lde["split"].data, lde["monolithic"].data),
+            "coset_intt": torch.equal(back, lde["monolithic intt"].data),
+            "round_trip": torch.equal(back[:n], v.data) and not bool(back[n:].any())}
+    emit({"phase": "split_ntt", "points": n, "lde_points": n * SPLIT_FACTOR, "identical": same,
+          "ms": ms, "seconds": round(time.perf_counter() - t_all, 3)})
+    if not all(same.values()):
+        raise AssertionError(f"split and monolithic coset transforms differ: {same}")
+
+
+def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
+    """The rendered verifiers in the port's interpreter on the card's
+    proofs: each must accept its proof and reject every tampered copy
+    (contract.py raises otherwise)."""
+    from plonkit_tpu_torch import contract, solvm
+    from plonkit_tpu_torch.plonk.extended import VerificationKey2
+    from plonkit_tpu_torch.serialization import VerificationKey
+    from plonkit_tpu_torch.solidity import render_recursive_verification_key
+    t_all = time.perf_counter()
+    d = os.path.join(tmp, "contract")
+    os.makedirs(d)
+    vk = VerificationKey.load(os.path.join(FIXTURES, "vk.bin"))
+    rec_vk = VerificationKey2.load(rec_vk_path)
+    # INDIVIDUAL_INPUTS is the count of every proof's inputs together
+    pair_sol = os.path.join(d, "recursive_verifier.sol")
+    with open(pair_sol, "w") as f:
+        f.write(render_recursive_verification_key(vk, rec_vk, len(agg.individual_inputs)))
+    pair_json = os.path.join(d, "recursive_proof.json")
+    with open(pair_json, "w") as f:
+        json.dump(agg.solidity_json(), f, indent=1)
+    cli64, rec = os.path.join(tmp, "cli64"), os.path.join(tmp, "recursive")
+    jobs = {
+        "verifier.sol, domain 64 (phase 7)": lambda: contract.run_single(
+            os.path.join(cli64, "verifier.sol"), os.path.join(cli64, "proof.json"),
+            os.path.join(cli64, "public.json")),
+        "recursive_verifier.sol, one proof at 2^21 (phase 9)": lambda: contract.run_recursive(
+            os.path.join(rec, "recursive_verifier.sol"),
+            os.path.join(rec, "recursive_proof.json")),
+        "recursive verifier, two proofs at 2^22 (phase 10)": lambda: contract.run_recursive(
+            pair_sol, pair_json),
+    }
+    found, seconds = {}, {}
+    for name, job in jobs.items():
+        t0 = time.perf_counter()
+        found[name] = job()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    # generate-recursive-verifier -i 2 renders one proof's input count: a
+    # contract that cannot take the pair's 4 inputs
+    per_proof = solvm.Interpreter(render_recursive_verification_key(vk, rec_vk, vk.num_inputs))
+    try:
+        per_proof_out = "returned %d" % per_proof.call(
+            "verifyAggregatedProof", *contract.recursive_arguments(agg.solidity_json()))
+    except solvm.SolRevert as e:
+        per_proof_out = f"reverted: {e}"
+    emit({"phase": "contract", "runs": found, "seconds": seconds,
+          "pair_with_one_proof_input_count": per_proof_out,
+          "total_s": round(time.perf_counter() - t_all, 3)})
 
 
 def merged_busy_us(intervals) -> float:
@@ -1067,16 +1226,21 @@ def main() -> int:
         launches, circuit, vk_bytes, proof_bytes = phase_main(key)
         torch.cuda.empty_cache()
         built = _build_snapshot()
-        with ThreadPoolExecutor(2) as pool:     # phases 7, 8 and 9 at once
+        with ThreadPoolExecutor(3) as pool:     # phases 7, 8 and 9 at once
             full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes)
             rec = pool.submit(phase_recursive_cli, tmp, key)
+            pair_vk = pool.submit(phase_recursive_vk_pair, tmp, key)
             phase_cli(tmp)
             full.result()
             rec.result()
+            rec_vk_path = pair_vk.result()
         if _build_snapshot() != built:
             raise AssertionError("a CLI process rebuilt a kernel library")
         del circuit
-        launches_recursive = phase_recursive(tmp, key)
+        launches_recursive, agg = phase_recursive(key, rec_vk_path)
+        torch.cuda.empty_cache()
+        phase_split_ntt()
+        phase_contract(tmp, agg, rec_vk_path)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_recursive"] = launches_recursive[r["name"]]

@@ -174,14 +174,8 @@ def cmd_recursive_prove(args):
                             backend=TorchBackend(args.backend))
     agg.save(args.new_proof)
     log.info("Recursive proof saved to %s", args.new_proof)
-    inputs, serialized = agg.proof.serialize_for_solidity()
     with open(args.proofjson, "w") as f:
-        json.dump({"proof": [str(w) for w in serialized],
-                   "inputs": [str(x) for x in inputs],
-                   "vk_root": str(agg.vk_root),
-                   "aggr_limbs": [str(v) for v in agg.aggr_limbs],
-                   "individual_inputs": [str(v) for v in agg.individual_inputs]},
-                  f, indent=1)
+        json.dump(agg.solidity_json(), f, indent=1)
     log.info("Recursive proof json saved to %s", args.proofjson)
 
 

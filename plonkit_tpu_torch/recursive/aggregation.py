@@ -254,6 +254,16 @@ class AggregatedProof:
         with open(filename, "rb") as f:
             return cls.read(f)
 
+    def solidity_json(self) -> dict:
+        """recursive-prove's recursive_proof.json: the arguments of the
+        recursive verifier contract, as decimal strings."""
+        inputs, serialized = self.proof.serialize_for_solidity()
+        return {"proof": [str(w) for w in serialized],
+                "inputs": [str(x) for x in inputs],
+                "vk_root": str(self.vk_root),
+                "aggr_limbs": [str(v) for v in self.aggr_limbs],
+                "individual_inputs": [str(v) for v in self.individual_inputs]}
+
 
 # --------------------------------------------------------------------------
 # top-level operations

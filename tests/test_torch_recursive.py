@@ -189,20 +189,28 @@ def test_batch_verify_matches_reference():
     assert not batch.verify_batch(vk, [proofs[0], bad])
 
 
-# -- the aggregation circuit of scratch/recursive_r5 ---------------------------
+# -- the aggregation circuits of the fixtures ------------------------------------
 
-def test_aggregation_circuit_matches_reference_at_full_size():
-    vk = VerificationKey.load(os.path.join(R5, "vk.bin"))
-    proof = Proof.load(os.path.join(R5, "proof_0.bin"))
-    c, limbs = aggregation.build_aggregation_circuit(vk, [proof])
-    assert c.num_gates == 1_611_923
-    assert len(c.values) == 3_923_821
+@pytest.mark.parametrize("fixture,proofs,gates,variables", [
+    (R5, ["proof_0.bin"], 1_611_923, 3_923_821),
+    (R22, ["proof_0.bin", "proof_1.bin"], 2_307_899, 5_572_855),
+], ids=["one_proof_2pow21", "two_proofs_2pow22"])
+def test_aggregation_circuit_matches_reference_at_full_size(fixture, proofs, gates, variables):
+    """The circuit of scratch/recursive_r5 (one rescue proof; its aggregate
+    is in the fixture) and of scratch/recursive_r22 (two; the circuit the
+    JAX package's two-proof recursive_vk.bin was made for)."""
+    vk = VerificationKey.load(os.path.join(fixture, "vk.bin"))
+    c, limbs = aggregation.build_aggregation_circuit(
+        vk, [Proof.load(os.path.join(fixture, p)) for p in proofs])
+    assert c.num_gates == gates
+    assert len(c.values) == variables
     ref_c, ref_limbs = ref_aggregation.build_aggregation_circuit(
-        ref_serialization.VerificationKey.load(os.path.join(R5, "vk.bin")),
-        [ref_serialization.Proof.load(os.path.join(R5, "proof_0.bin"))])
+        ref_serialization.VerificationKey.load(os.path.join(fixture, "vk.bin")),
+        [ref_serialization.Proof.load(os.path.join(fixture, p)) for p in proofs])
     assert limbs == ref_limbs
     assert c.public_inputs() == ref_c.public_inputs()
     assert _structure(c) == _structure(ref_c)
-    agg = aggregation.AggregatedProof.load(os.path.join(R5, "recursive_proof.bin"))
-    assert c.public_inputs() == agg.proof.input_values
-    assert limbs == agg.aggr_limbs
+    if fixture == R5:
+        agg = aggregation.AggregatedProof.load(os.path.join(R5, "recursive_proof.bin"))
+        assert c.public_inputs() == agg.proof.input_values
+        assert limbs == agg.aggr_limbs
