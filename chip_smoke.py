@@ -23,7 +23,9 @@ Phases, each printing a JSON line with its wall seconds:
    butterfly_dif, K5 butterfly on 2^19 butterflies (random Montgomery Fr
    values from a fixed numpy seed, with 0, 1, p-1 and p-2 planted; K3 and
    K5 with a real stage's twiddles, K5 reading the even and odd rows of one
-   buffer as the inverse transform does); K6 bucket_sweep on the
+   buffer as the inverse transform does, and again as a batched stage of
+   the 4-step NTT: 2^10 transforms of 2^10 points, gpu/ntt.ntt_batched's
+   [m, B] layout); K6 bucket_sweep on the
    segments of one MSM of 2^20 random scalars over the SRS bases (the main
    path's shape) and on the sorted window-0 entries of 2^16 of them, both
    with a planted bucket of more than four segments; K7 padd at 2^20 lanes with
@@ -90,19 +92,51 @@ Phases, each printing a JSON line with its wall seconds:
    reject a copy with one flipped byte of the outer public input, and
    check_aggregation must accept it.  Then the split coset transforms that
    only this size reaches (backend_torch.SPLIT_NTT_MIN = 2^24): the
-   2^24-point coset LDE of one 2^22-point vector and its coset iNTT, split
-   and monolithic (the threshold raised in this process), equal bit for
-   bit, and the iNTT giving the vector back;
+   2^24-point coset LDE of one 2^22-point vector, its coset iNTT and the
+   2^24-point coset NTT of that LDE, split and monolithic (the threshold
+   raised in this process), equal bit for bit, and the iNTT giving the
+   vector back;
 11. contract: the rendered verifiers run in the port's interpreter
    (solvm.py, through contract.py) on the card's proofs: phase 7's
    verifier.sol on its keccak proof.json / public.json, phase 9's
    recursive_verifier.sol on its recursive_proof.json, and the recursive
    verifier of phase 9's two-proof vk on phase 10's aggregate; each must
-   accept the proof and reject every tampered copy.
+   accept the proof and reject every tampered copy;
+12. poseidon (phases 12-14 run after phase 10's split check and before
+   phase 11, so that phases 1-11 measure as before): the Poseidon hash
+   chain of scripts/bench_prove.py (poseidon_chain_circuit(20):
+   454 circomlib Poseidon(2) hashes, ~1,047,379 gates, a 2^20 domain):
+   SetupForProver, make_verification_key, prove (then a warm prove) and
+   verify on the card, a tampered copy rejected, with the host build,
+   setup, vk and prove seconds and the prover's stages.  Then a foreign
+   SRS: a seeded random tau, 2^20 points made on the card
+   (gpu/fixed_base.gen_crs_g1_device), written with save_crs_g1_limbs and
+   read back through CrsHandle; the same setup's host work, copied with
+   that key and no prover context, proves and verifies, and the proof
+   fails against the tau = 42 vk;
+13. mesh: the same Poseidon setup with its backend swapped to
+   parallel/backend_mesh.MeshBackend over a one-rank NCCL world in this
+   process (NCCL takes one rank per card, and the smoke needs one card):
+   its vk.bin and proof.bin must be
+   phase 12's bytes; the launches of every kernel on this path (each must
+   launch, K2b excepted if the path takes no sub), every commitment
+   through parallel/msm.DistributedMSMContext, the counts of distributed
+   and gathered operations and the collectives' calls and bytes.  Phase
+   7 also runs `--backend mesh prove` on the domain-64 fixture in its
+   pool: its proof.bin must equal `prove`'s;
+14. mesh_ranks: parallel/dryrun.dryrun_multichip(4,
+   "cuda", "gloo"), four spawned ranks sharing the card over gloo: the
+   domain-64 fixture proved on the mesh gives scratch/recursive_r22's
+   vk.bin and proof_0.bin; the distributed MSM over 2^16 points equals the
+   host Pippenger; the distributed NTT and iNTT at 2^20 equal gpu/ntt's
+   bit for bit; the synthetic chain at 2^16 (n1 = n2 = 2^8) proved on the
+   mesh, every commitment through DistributedMSMContext, gives the
+   single-device vk.bin and proof.bin.  The ranks load the libraries
+   phase 1 built: none is rebuilt.
 
 Then the kernels line (each row with its launches on the main path of
-phase 6, on the recursive path of phase 10 and in the device SRS of phase
-2), the card line, and as the last line
+phase 6, on the recursive path of phase 10, in the device SRS of phase 2
+and on the mesh path of phase 13), the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and no result line is printed.  Without a CUDA device it stops at once.
 """
@@ -132,6 +166,9 @@ PAIR_LOG2 = 22          # the aggregation circuit of two proofs (phases 9, 10)
 SRS_LOG2 = PAIR_LOG2    # the device SRS
 SPLIT_FACTOR = 4        # the prover's LDE factor: 2^24-point transforms at 2^22
 SRS_CHECK_LOG2 = 12     # key prefix held against srs.py byte for byte
+POSEIDON_LOG2 = 20      # the Poseidon chain's domain (phases 12, 13)
+POSEIDON_HASHES = 454   # its chain length (scratch/bench_poseidon_2pow20.log)
+MESH_RANKS = 4          # gloo ranks sharing the card (phase 14)
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
@@ -403,9 +440,25 @@ def _field_rows() -> list:
     tw_inv = inv_pows[::2][:half >> 1].repeat_interleave(2, dim=0)
     even, odd = b[0::2], b[1::2]
     out = torch.empty_like(b)
+    # K5 on stage 1 of the batched inverse transforms of the 4-step NTT
+    # (gpu/ntt.ntt_batched): m = 2^10 points in each of B = 2^10 columns,
+    # transform axis outermost, so the even and odd rows are blocks of B
+    # rows 2B apart
+    m = bsz = 1 << (KERNEL_LOG2 // 2)
+    pairs = b.view(m // 2, 2 * bsz, 8)
+    blo, bhi = pairs[:, :bsz], pairs[:, bsz:]
+    tw_b = ntt._stage_twiddles(ntt.powers(fr_inv(get_domain_omega(m)), m // 2, DEVICE), 1,
+                               m // 2, bsz)
+    out_b = torch.empty_like(b)
 
     def plain_bfly():
         return mont.add(FR, lo, hi), mont.mont_mul(FR, tw, mont.sub(FR, lo, hi))
+
+    def batched_k5():
+        got = ntt.butterfly(FR, blo, bhi, tw_b, out_b)
+        want = mont.butterfly(FR, blo.reshape(-1, 8), bhi.reshape(-1, 8), tw_b)
+        return {"shape": [m, bsz], "mismatches": _mismatches(got, want),
+                "ms": time_ms(lambda: ntt.butterfly(FR, blo, bhi, tw_b, out_b), 20)}
 
     return [
         _row("K1 mul", lambda: fk.mul(FR, a, b), lambda: mont.mont_mul(FR, a, b), n,
@@ -420,7 +473,7 @@ def _field_rows() -> list:
              4 * 32 * n, MONT_MUL_OPS * n, 20),
         _row("K5 butterfly", lambda: ntt.butterfly(FR, even, odd, tw_inv, out),
              lambda: mont.butterfly(FR, even, odd, tw_inv), half,
-             5 * 32 * half, MONT_MUL_OPS * half, 20),
+             5 * 32 * half, MONT_MUL_OPS * half, 20, batched=batched_k5()),
     ]
 
 
@@ -611,8 +664,11 @@ def phase_kernels(ctx) -> list:
     t0 = time.perf_counter()
     rows = _field_rows() + _msm_rows(ctx)
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
-          "mismatches": {r["name"]: r["mismatches"] for r in rows}})
-    bad = [r["name"] for r in rows if r["mismatches"]]
+          "mismatches": {r["name"]: r["mismatches"] for r in rows},
+          "batched_mismatches": {r["name"]: r["batched"]["mismatches"]
+                                 for r in rows if "batched" in r}})
+    bad = [r["name"] for r in rows
+           if r["mismatches"] or r.get("batched", {}).get("mismatches")]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -746,12 +802,20 @@ def _counting_commit_groups(groups: list):
         TorchBackend.commit_many, TorchBackend.commit = many, one
 
 
+def _tampered(proof):
+    """A copy of the proof with its first wire value at z changed."""
+    from plonkit_tpu_torch.serialization import Proof
+    out = Proof.read(io.BytesIO(proof.to_bytes()))
+    out.wire_values_at_z[0] = (out.wire_values_at_z[0] + 1) % (1 << 253)
+    return out
+
+
 def phase_main(key: str):
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.api import SetupForProver, verify
     from plonkit_tpu_torch.frontend.synthetic import synth_circuit
     from plonkit_tpu_torch.gpu import msm_kernels as mk
-    from plonkit_tpu_torch.serialization import CrsHandle, Proof
+    from plonkit_tpu_torch.serialization import CrsHandle
     t_all = time.perf_counter()
     times = {}
 
@@ -785,9 +849,7 @@ def phase_main(key: str):
 
     t0 = time.perf_counter()
     ok = verify(vk, proof)
-    tampered = Proof.read(io.BytesIO(proof.to_bytes()))
-    tampered.wire_values_at_z[0] = (tampered.wire_values_at_z[0] + 1) % (1 << 253)
-    rejected = not verify(vk, tampered)
+    rejected = not verify(vk, _tampered(proof))
     times["verify"] = time.perf_counter() - t0
 
     # the same setup, every commitment in the host Pippenger
@@ -829,6 +891,154 @@ def phase_main(key: str):
     return launches, circuit, vk.to_bytes(), proof.to_bytes()
 
 
+def _prove_twice(setup, circuit, times: dict, label: str = ""):
+    """vk, the first prove (its prover context included) and a warm one,
+    each timed into `times`; returns vk, the first proof and its stages."""
+    from plonkit_tpu_torch import profiling
+    t0 = time.perf_counter()
+    vk = setup.make_verification_key()
+    times[label + "vk"] = time.perf_counter() - t0
+    profiling.reset()
+    t0 = time.perf_counter()
+    proof = setup.prove(circuit)
+    times[label + "prove"] = time.perf_counter() - t0
+    stages = dict(profiling.last_timings)
+    t0 = time.perf_counter()
+    warm = setup.prove(circuit)
+    times[label + "prove warm"] = time.perf_counter() - t0
+    if warm.to_bytes() != proof.to_bytes():
+        raise AssertionError(f"{label or 'a '}warm prove gave other bytes")
+    return vk, proof, stages
+
+
+def phase_poseidon(tmp: str, key: str):
+    """The Poseidon chain at 2^20 over the tau = 42 key, then over a foreign
+    key of a seeded random tau.  Returns the setup, the circuit and the
+    tau = 42 vk and proof bytes."""
+    import random
+    import torch
+    from plonkit_tpu_torch.api import SetupForProver, verify
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+    from plonkit_tpu_torch.curve import G2_GEN, g2_mul
+    from plonkit_tpu_torch.fields import FR_MODULUS
+    from plonkit_tpu_torch.frontend.poseidon import poseidon_circuit
+    from plonkit_tpu_torch.frontend.synthetic import poseidon_chain_circuit
+    from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
+    from plonkit_tpu_torch.serialization import CrsHandle, save_crs_g1_limbs
+    t_all = time.perf_counter()
+    times = {}
+    t0 = time.perf_counter()
+    circuit = poseidon_chain_circuit(POSEIDON_LOG2)
+    times["circuit"] = time.perf_counter() - t0
+    # one constraint binds the output; the rest are the chain's hashes
+    per_hash = len(poseidon_circuit(2, chain=1)[0].r1cs.constraints) - 1
+    hashes = (len(circuit.r1cs.constraints) - 1) / per_hash
+    _reset_launches()
+    t0 = time.perf_counter()
+    setup = SetupForProver(circuit, CrsHandle(key), device=DEVICE)
+    times["setup"] = time.perf_counter() - t0
+    domain = setup.setup_polynomials.domain_size
+    gates = setup._witness_plan.tc.num_constraint_gates
+    vk, proof, stages = _prove_twice(setup, circuit, times)
+    launches = _launch_counts()
+    t0 = time.perf_counter()
+    checks = {"verified": verify(vk, proof), "tampered_rejected": not verify(vk, _tampered(proof)),
+              "domain_2pow20": domain == 1 << POSEIDON_LOG2, "hashes": hashes == POSEIDON_HASHES}
+    times["verify"] = time.perf_counter() - t0
+
+    # a foreign SRS: a seeded random tau, the key made on the card
+    tau = random.Random(SEED + 5).randrange(2, FR_MODULUS)
+    foreign = os.path.join(tmp, f"foreign_2pow{POSEIDON_LOG2}.key")
+    t0 = time.perf_counter()
+    x, y, inf = gen_crs_g1_device(POSEIDON_LOG2, tau, DEVICE)
+    save_crs_g1_limbs(foreign, x, y, inf, [G2_GEN, g2_mul(G2_GEN, tau)])
+    torch.cuda.synchronize()
+    times["foreign key"] = time.perf_counter() - t0
+    handle = CrsHandle(foreign)
+    other = copy.copy(setup)
+    other.crs, other.backend, other._prover_ctx = handle, TorchBackend(DEVICE), None
+    t0 = time.perf_counter()
+    vk_f = other.make_verification_key()
+    proof_f = other.prove(circuit)
+    times["foreign vk + prove"] = time.perf_counter() - t0
+    checks.update({
+        "foreign key read back": handle.num_g1 == 1 << POSEIDON_LOG2
+        and handle.g2_monomial_bases == [G2_GEN, g2_mul(G2_GEN, tau)],
+        "foreign verified": verify(vk_f, proof_f),
+        "foreign rejected by the tau = 42 vk": not verify(vk, proof_f),
+        "foreign vk differs": vk_f.to_bytes() != vk.to_bytes()})
+    emit({"phase": "poseidon", "domain": domain, "hashes": hashes, "gates": gates,
+          "constraints": len(circuit.r1cs.constraints), "checks": checks,
+          "seconds": {k: round(v, 3) for k, v in times.items()},
+          "stages_s": {k: round(v, 3) for k, v in stages.items()},
+          "launches": launches, "total_s": round(time.perf_counter() - t_all, 3)})
+    if not all(checks.values()):
+        raise AssertionError(f"the Poseidon chain at 2^{POSEIDON_LOG2} fails: {checks}")
+    return setup, circuit, vk.to_bytes(), proof.to_bytes()
+
+
+def phase_mesh(setup, circuit, vk_bytes: bytes, proof_bytes: bytes) -> dict:
+    """The Poseidon setup on MeshBackend over a one-rank NCCL world: the
+    same bytes; the launches of every kernel on the mesh path."""
+    from plonkit_tpu_torch.parallel.backend_mesh import MeshBackend
+    t_all = time.perf_counter()
+    backend = MeshBackend(device=DEVICE)
+    mesh_setup = copy.copy(setup)
+    mesh_setup.backend, mesh_setup._prover_ctx = backend, None
+    _reset_launches()
+    backend.mesh.reset_counts()
+    times = {}
+    vk, proof, stages = _prove_twice(mesh_setup, circuit, times)
+    launches = _launch_counts()
+    same = {"vk.bin": vk.to_bytes() == vk_bytes, "proof.bin": proof.to_bytes() == proof_bytes}
+    emit({"phase": "mesh", "domain": setup.setup_polynomials.domain_size,
+          "world": backend.D, "process_group": backend.mesh.backend,
+          "identical_to_poseidon_phase": same,
+          "seconds": {k: round(v, 3) for k, v in times.items()},
+          "stages_s": {k: round(v, 3) for k, v in stages.items()},
+          "distributed": dict(backend.distributed), "gathered": dict(backend.gathered),
+          "collectives": backend.mesh.counts, "launches": launches,
+          "total_s": round(time.perf_counter() - t_all, 3)})
+    if not all(same.values()):
+        raise AssertionError(f"the mesh gives other bytes than one device: {same}")
+    if backend.gathered.get("commit") or not backend.distributed.get("commit"):
+        raise AssertionError("a commitment of the mesh path left DistributedMSMContext")
+    idle = [k for k, v in launches.items() if v == 0 and k != "K2b sub"]
+    if idle:
+        raise AssertionError(f"kernels never launched on the mesh path: {idle}")
+    return launches
+
+
+def phase_mesh_ranks(tmp: str, key: str) -> None:
+    """dryrun_multichip on MESH_RANKS gloo ranks sharing the card."""
+    from plonkit_tpu_torch.parallel.dryrun import dryrun_multichip
+    built = _build_snapshot()
+    out = dryrun_multichip(MESH_RANKS, DEVICE, "gloo", key=key, timeout_s=600, workdir=tmp)
+    chain = out["chain"]
+    checks = {
+        "fixture vk.bin": out["fixture_64"]["vk.bin = fixture vk.bin"],
+        "fixture proof_0.bin": out["fixture_64"]["rescue proof = fixture proof_0.bin"],
+        "msm uniform": out["msm"]["uniform"]["equal"],
+        "msm 0/1 padded": out["msm"]["zero_one_padded"]["equal"],
+        "ntt": out["ntt"]["ntt"], "intt": out["ntt"]["intt"],
+        "round trip": out["ntt"]["round_trip"],
+        "chain vk.bin": chain["vk.bin = one device"],
+        "chain proof.bin": chain["proof.bin = one device"],
+        "chain commitments all distributed": chain["distributed"].get("commit", 0) > 0
+        and not chain["gathered"].get("commit"),
+        "no library rebuilt": _build_snapshot() == built}
+    emit({"phase": "mesh_ranks", "ranks": out["ranks"], "process_group": out["backend"],
+          "device": out["device"], "checks": checks,
+          "chain_domain": chain["domain"], "ntt_points": out["ntt"]["points"],
+          "msm_points": {k: v["points"] for k, v in out["msm"].items()},
+          "chain_distributed": chain["distributed"], "chain_gathered": chain["gathered"],
+          "collectives_rank0": out["collectives"],
+          "seconds": {k: round(v, 3) for k, v in out["seconds"].items()},
+          "total_s": round(out["wall_s"], 3)})
+    if not all(checks.values()):
+        raise AssertionError(f"the {MESH_RANKS}-rank mesh on the card fails: {checks}")
+
+
 def _build_snapshot() -> dict:
     """name -> (size, mtime) of every built library, to show that no CLI
     process rebuilt one."""
@@ -857,7 +1067,10 @@ def phase_cli(tmp: str) -> None:
                                      "-c", circuit, "-v", "vk.bin"]),
         ("prove", ["prove", "-m", "setup.key", "-c", circuit, "-w", witness]),
         ("dump-lagrange", ["dump-lagrange", "-m", "setup.key", "-l", "lagrange.key",
-                           "-c", circuit]), cwd=d))
+                           "-c", circuit]),
+        ("--backend mesh prove", ["--backend", "mesh", "prove", "-m", "setup.key", "-c", circuit,
+                                  "-w", witness, "-p", "proof_mesh.bin", "-j", "proof_mesh.json",
+                                  "-i", "public_mesh.json"]), cwd=d))
     with open(os.path.join(d, "proof.bin"), "rb") as f:
         blob = bytearray(f.read())
     blob[17] ^= 1                                   # a bit of the public input
@@ -885,6 +1098,8 @@ def phase_cli(tmp: str) -> None:
                                                   os.path.join(FIXTURES, "vk.bin")),
             "prove -l = prove": _same_file(os.path.join(d, "proof_l.bin"),
                                            os.path.join(d, "proof.bin")),
+            "--backend mesh prove = prove": _same_file(os.path.join(d, "proof_mesh.bin"),
+                                                       os.path.join(d, "proof.bin")),
             "prove -t rescue = fixture proof_0.bin": _same_file(
                 os.path.join(d, "proof_rescue.bin"), os.path.join(AGG_FIXTURES, "proof_0.bin"))}
     emit({"phase": "cli", "domain": 64, "identical": same, "num_gates": stats["num_gates"],
@@ -1061,10 +1276,11 @@ def phase_recursive(key: str, rec_vk_path: str):
 
 
 def phase_split_ntt() -> None:
-    """The 2^24-point coset LDE of one random 2^22-point vector, and its
-    coset iNTT, through TorchBackend's split transforms (the path of a 2^22
-    domain) and through the monolithic ones (SPLIT_NTT_MIN raised in this
-    process): equal bit for bit, and the iNTT gives the vector back."""
+    """The 2^24-point coset LDE of one random 2^22-point vector, its coset
+    iNTT, and the 2^24-point coset NTT of that LDE, through TorchBackend's
+    split transforms (the path of a 2^22 domain) and through the monolithic
+    ones (SPLIT_NTT_MIN raised in this process): equal bit for bit, and the
+    iNTT gives the vector back."""
     import torch
     from plonkit_tpu_torch import backend_torch
     from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
@@ -1085,11 +1301,15 @@ def phase_split_ntt() -> None:
             b.coset_intt(lde["split"])
             lde[f"{route} intt"], ms[f"coset_intt {route}"] = _timed_once(
                 lambda: b.coset_intt(lde["split"]))
+            b.coset_ntt(lde["split"])
+            lde[f"{route} ntt"], ms[f"coset_ntt {route}"] = _timed_once(
+                lambda: b.coset_ntt(lde["split"]))
         finally:
             backend_torch.SPLIT_NTT_MIN = saved
     back = lde["split intt"].data
     same = {"coset_lde": torch.equal(lde["split"].data, lde["monolithic"].data),
             "coset_intt": torch.equal(back, lde["monolithic intt"].data),
+            "coset_ntt": torch.equal(lde["split ntt"].data, lde["monolithic ntt"].data),
             "round_trip": torch.equal(back[:n], v.data) and not bool(back[n:].any())}
     emit({"phase": "split_ntt", "points": n, "lde_points": n * SPLIT_FACTOR, "identical": same,
           "ms": ms, "seconds": round(time.perf_counter() - t_all, 3)})
@@ -1240,11 +1460,18 @@ def main() -> int:
         launches_recursive, agg = phase_recursive(key, rec_vk_path)
         torch.cuda.empty_cache()
         phase_split_ntt()
+        torch.cuda.empty_cache()
+        pos_setup, pos_circuit, pos_vk, pos_proof = phase_poseidon(tmp, key)
+        launches_mesh = phase_mesh(pos_setup, pos_circuit, pos_vk, pos_proof)
+        del pos_setup, pos_circuit
+        torch.cuda.empty_cache()
+        phase_mesh_ranks(tmp, key)
         phase_contract(tmp, agg, rec_vk_path)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_recursive"] = launches_recursive[r["name"]]
         r["launches_srs"] = launches_srs[r["name"]]
+        r["launches_mesh"] = launches_mesh[r["name"]]
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     print(card_line(), flush=True)

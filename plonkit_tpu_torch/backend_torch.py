@@ -89,6 +89,11 @@ class TorchBackend:
     def _shift_in_one(self, factors: torch.Tensor) -> torch.Tensor:
         return torch.cat([self._ones(1), factors[:-1]])
 
+    def _vec(self, data: torch.Tensor, like=None) -> FrVec:
+        """The handle of a result; `like` is an operand of the same length
+        (parallel/backend_mesh.MeshBackend carries its global length)."""
+        return FrVec(data)
+
     def _to_ints(self, data: torch.Tensor) -> List[int]:
         raw = fk.mul(FR, data.contiguous(), FR.const_raw(1, data.shape[0], self.device))
         return FR.from_limbs_np(to_numpy(raw))
@@ -106,6 +111,9 @@ class TorchBackend:
         t = to_tensor(raw, self.device)
         return FrVec(fk.mul(FR, t, FR.const_raw(FR.r2_mod_p, t.shape[0], self.device)))
 
+    def zeros(self, n: int) -> FrVec:
+        return FrVec(torch.zeros((n, NLIMBS), dtype=torch.int32, device=self.device))
+
     def to_ints(self, v: FrVec) -> List[int]:
         return self._to_ints(v.data)
 
@@ -116,6 +124,11 @@ class TorchBackend:
 
     def intt(self, v: FrVec) -> FrVec:
         return FrVec(gntt.intt(v.data))
+
+    def coset_ntt(self, v: FrVec, shift: int = FR_GENERATOR) -> FrVec:
+        if len(v) >= SPLIT_NTT_MIN and len(v) % 4 == 0:
+            return self._coset_ntt_split(v, 4, shift)
+        return FrVec(gntt.coset_ntt(v.data, shift))
 
     def coset_intt(self, v: FrVec, shift: int = FR_GENERATOR) -> FrVec:
         if len(v) >= SPLIT_NTT_MIN and len(v) % 4 == 0:
@@ -131,6 +144,26 @@ class TorchBackend:
     # As backend_jax: LDE[F*t + j] = coset_ntt_n(p, g*eta^j)[t] with
     # eta = omega_{F*n}; the inverse recombines coset_intt_n(v[j::F],
     # g*eta^j) with a 4-point DFT across j (see backend_jax.py:458-468).
+    # The coset NTT of a length-N vector v folds its F blocks of m = N/F
+    # first: X[F*t + j] = coset_ntt_m(u_j, g*eta^j)[t] with eta = omega_N
+    # and u_j = sum_q (g*eta^j)^(m*q) * v[q*m:(q+1)*m] (backend_jax's
+    # coset_ntt has no split path).
+
+    def _coset_ntt_split(self, v: FrVec, factor: int, shift: int) -> FrVec:
+        total = len(v)
+        m = total // factor
+        eta = get_domain_omega(total)
+        blocks = [v.data[q * m:(q + 1) * m] for q in range(factor)]
+        parts = []
+        for j in range(factor):
+            s = shift * pow(eta, j, R) % R
+            s_m = pow(s, m, R)
+            u = blocks[0]
+            for q in range(1, factor):
+                u = self._mul_add(blocks[q], self._const(pow(s_m, q, R), m), u)
+            parts.append(gntt.coset_ntt(u, s))
+        # [m, F, 8] -> [F*m, 8] puts part j at rows F*t + j
+        return FrVec(torch.stack(parts, dim=1).reshape(total, NLIMBS))
 
     def _coset_lde_split(self, v: FrVec, factor: int, shift: int) -> FrVec:
         n = len(v)
@@ -221,24 +254,24 @@ class TorchBackend:
     # -- elementwise ---------------------------------------------------------
 
     def sub(self, a: FrVec, b: FrVec) -> FrVec:
-        return FrVec(fk.sub(FR, a.data, b.data))
+        return self._vec(fk.sub(FR, a.data, b.data), a)
 
     def scale(self, a: FrVec, k: int) -> FrVec:
-        return FrVec(self._scale(a.data, k))
+        return self._vec(self._scale(a.data, k), a)
 
     def scale_add(self, a: FrVec, k: int, c: FrVec) -> FrVec:
         """a * k + c (one K4 launch)."""
-        return FrVec(self._mul_add(a.data, self._const(k, len(a)), c.data))
+        return self._vec(self._mul_add(a.data, self._const(k, a.data.shape[0]), c.data), a)
 
     def mul(self, a: FrVec, b: FrVec) -> FrVec:
-        return FrVec(self._mul(a.data, b.data))
+        return self._vec(self._mul(a.data, b.data), a)
 
     def add(self, a: FrVec, b: FrVec) -> FrVec:
-        return FrVec(self._add(a.data, b.data))
+        return self._vec(self._add(a.data, b.data), a)
 
     def add_scalar(self, a: FrVec, k: int) -> FrVec:
         """a + k (one K2a launch against a constant row)."""
-        return FrVec(self._add(a.data, self._const(k, len(a))))
+        return self._vec(self._add(a.data, self._const(k, a.data.shape[0])), a)
 
     # -- accumulators of the extended prover (plonk/extended.py) -------------
     # backend_jax donates `acc` to these; here each returns a new buffer and
@@ -247,7 +280,7 @@ class TorchBackend:
 
     def fma_acc(self, acc: FrVec, x: FrVec, y: FrVec) -> FrVec:
         """acc + x * y (one K4 launch)."""
-        return FrVec(self._mul_add(x.data, y.data, acc.data))
+        return self._vec(self._mul_add(x.data, y.data, acc.data), acc)
 
     def add_into(self, acc: FrVec, t: FrVec) -> FrVec:
         return self.add(acc, t)
@@ -291,8 +324,8 @@ class TorchBackend:
         acc = mul_add(q[3], w[3], acc)
         acc = mul_add(q[4], mul(w[0], w[1]), acc)
         acc = add(acc, q[5])
-        acc = mul_add(q[6], torch.roll(w[3], -1, dims=0), acc)
-        return FrVec(add(acc, pi_vec.data))
+        acc = mul_add(q[6], self.rotate(wires_v[3], 1).data, acc)
+        return self._vec(add(acc, pi_vec.data), pi_vec)
 
     def any_nonzero(self, v: FrVec) -> bool:
         return bool(torch.any(v.data != 0))
@@ -304,7 +337,7 @@ class TorchBackend:
         backend_jax._quotient_column_jit: t = (gate + alpha*perm +
         alpha^2*(z-1)*L0) * Z_H^-1 over the LDE domain."""
         mul, add, mul_add = self._mul, self._add, self._mul_add
-        n = len(z_l)
+        n = z_l.data.shape[0]
 
         def bc(k):
             return self._const(k, n)
@@ -333,7 +366,7 @@ class TorchBackend:
         numerator = mul_add(perm, bc(alpha), gate)
         z_minus_1_l0 = mul(add(z_l.data, bc(R - 1)), l0_l.data)
         numerator = mul_add(z_minus_1_l0, bc(alpha * alpha), numerator)
-        return FrVec(mul(numerator, vanishing_inv.data))
+        return self._vec(mul(numerator, vanishing_inv.data), z_l)
 
     def permutation_grand_product(self, omega_pows, sigma_v, wires_v,
                                   beta: int, gamma: int, k_cols) -> FrVec:
@@ -341,7 +374,7 @@ class TorchBackend:
         prod_j (beta*sigma_j + w_j + gamma)), as
         backend_jax._perm_grand_product_jit."""
         mul, add, mul_add = self._mul, self._add, self._mul_add
-        n = len(wires_v[0])
+        n = wires_v[0].data.shape[0]
         gamma_v, beta_v = self._const(gamma, n), self._const(beta, n)
         num = den = None
         for j, k in enumerate(k_cols):
@@ -350,10 +383,10 @@ class TorchBackend:
             t_d = mul_add(sigma_v[j].data, beta_v, w_gamma)
             num = t_n if num is None else mul(num, t_n)
             den = t_d if den is None else mul(den, t_d)
-        return self.grand_product(FrVec(mul(num, fk.batch_inverse(FR, den))))
+        return self.grand_product(self._vec(mul(num, fk.batch_inverse(FR, den)), wires_v[0]))
 
     def batch_inverse(self, v: FrVec) -> FrVec:
-        return FrVec(fk.batch_inverse(FR, v.data))
+        return self._vec(fk.batch_inverse(FR, v.data), v)
 
     def powers(self, base: int, n: int) -> FrVec:
         return FrVec(gntt.powers(base % R, n, self.device))
@@ -362,12 +395,15 @@ class TorchBackend:
         """Sigma value vectors from the [4, size] label-index array (label
         c*size + r == K_COLS[c] * omega^r): one powers table, four scalings
         and four gathers."""
-        from .plonk.setup import K_COLS
-        size = int(label_idx.shape[1])
-        pows = gntt.powers(get_domain_omega(size), size, self.device)
-        table = torch.cat([self._scale(pows, k) for k in K_COLS])
+        table = self._label_table(int(label_idx.shape[1]))
         idx = torch.from_numpy(np.ascontiguousarray(label_idx, dtype=np.int64)).to(self.device)
         return [FrVec(table.index_select(0, row)) for row in idx]
+
+    def _label_table(self, size: int) -> torch.Tensor:
+        """[4 * size, 8]: row c*size + r holds K_COLS[c] * omega^r."""
+        from .plonk.setup import K_COLS
+        pows = gntt.powers(get_domain_omega(size), size, self.device)
+        return torch.cat([self._scale(pows, k) for k in K_COLS])
 
     def poly_eval(self, coeffs: FrVec, x: int) -> int:
         return self.poly_eval_many([coeffs], x)[0]
@@ -381,13 +417,20 @@ class TorchBackend:
         n = len(polys[0])
         if any(len(p) != n for p in polys):
             raise ValueError("poly_eval_many: polynomials of unequal length")
-        pows = gntt.powers(x % R, n, self.device)
-        sums = torch.stack([
+        return self._reduce_limb_sums(self._limb_sums(polys, gntt.powers(x % R, n, self.device)))
+
+    def _limb_sums(self, polys, pows: torch.Tensor) -> torch.Tensor:
+        """[P, 8] int64: the limbs of each polynomial's products with pows,
+        summed column by column without carries."""
+        return torch.stack([
             (self._mul(p.data.contiguous(), pows).to(torch.int64) & 0xFFFFFFFF).sum(dim=0)
-            for p in polys]).cpu().tolist()
+            for p in polys])
+
+    @staticmethod
+    def _reduce_limb_sums(sums: torch.Tensor) -> List[int]:
         inv_r = pow(1 << 256, -1, R)
         return [sum(int(s) << (32 * i) for i, s in enumerate(row)) % R * inv_r % R
-                for row in sums]
+                for row in sums.cpu().tolist()]
 
     def divide_by_linear(self, coeffs: FrVec, point: int) -> FrVec:
         """Quotient of p(X) / (X - point), remainder dropped:
@@ -404,6 +447,9 @@ class TorchBackend:
 
     def slice(self, v: FrVec, start: int, stop: int) -> FrVec:
         return FrVec(v.data[start:stop])
+
+    def concat(self, vs: Sequence[FrVec]) -> FrVec:
+        return FrVec(torch.cat([v.data for v in vs]))
 
     def rotate(self, v: FrVec, k: int) -> FrVec:
         return FrVec(torch.roll(v.data, -k, dims=0))

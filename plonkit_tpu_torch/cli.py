@@ -12,10 +12,13 @@ Kept from the reference: circuit-file resolution, the no-clobber
 an invalid proof or aggregation (seen as 144 by a POSIX shell).
 
 `--backend cuda` (the default) proves on the card and raises without one;
-`--backend cpu` takes the kernels' plain versions on the CPU.  Nothing
-falls back from one to the other.  `setup -p` above 16 makes the SRS on
-the card (gpu/fixed_base.py) with `--backend cuda`, and on the host
-(srs.py) otherwise, as plonkit_tpu/cli.py does.
+`--backend cpu` takes the kernels' plain versions on the CPU; `--backend
+mesh` proves on parallel/backend_mesh.MeshBackend over the card(s): a
+world of one NCCL rank, or the ranks of torchrun's environment, of which
+rank 0 writes the files.  Nothing falls back from one to another.
+`setup -p` above 16 makes the SRS on the card (gpu/fixed_base.py) with
+`--backend cuda` or `mesh`, and on the host (srs.py) otherwise, as
+plonkit_tpu/cli.py does.
 """
 
 import argparse
@@ -45,6 +48,19 @@ def _no_clobber(path, overwrite, what):
         sys.exit(f"duplicate {what} file: {path}")
 
 
+def _backend(args):
+    """The compute backend --backend names; a mesh needs a card, as cuda."""
+    if args.backend == "mesh":
+        from .parallel.backend_mesh import MeshBackend
+        return MeshBackend(device="cuda")
+    return TorchBackend(args.backend)
+
+
+def _writes(backend) -> bool:
+    """Whether this process writes the outputs (rank 0 of a mesh)."""
+    return getattr(backend, "rank", 0) == 0
+
+
 def _load_circuit(circuit_file, witness=None):
     log.info("Loading circuit from %s...", circuit_file)
     return CircomCircuit(
@@ -64,11 +80,11 @@ def cmd_analyse(args):
 
 def cmd_setup(args):
     _no_clobber(args.srs_monomial_form, args.overwrite, "srs_monomial_form")
-    if args.power > 16 and args.backend == "cuda":
+    if args.power > 16 and args.backend != "cpu":
         from .curve import G2_GEN, g2_mul
         from .gpu.fixed_base import gen_crs_g1_device
         from .serialization import save_crs_g1_limbs
-        TorchBackend(args.backend)              # raises without a card
+        TorchBackend("cuda")                    # raises without a card
         save_crs_g1_limbs(args.srs_monomial_form, *gen_crs_g1_device(args.power, api.DEV_TAU),
                           [G2_GEN, g2_mul(G2_GEN, api.DEV_TAU)])
     else:
@@ -78,9 +94,11 @@ def cmd_setup(args):
 
 def cmd_dump_lagrange(args):
     circuit = _load_circuit(_resolve_circuit_file(args.circuit))
-    setup = api.SetupForProver(circuit, Crs.load(args.srs_monomial_form),
-                               backend=TorchBackend(args.backend))
+    backend = _backend(args)
+    setup = api.SetupForProver(circuit, Crs.load(args.srs_monomial_form), backend=backend)
     key_l = setup.get_srs_lagrange_form_from_monomial_form()
+    if not _writes(backend):
+        return
     _no_clobber(args.srs_lagrange_form, args.overwrite, "srs_lagrange_form")
     key_l.save(args.srs_lagrange_form)
     log.info("srs_lagrange_form saved to %s", args.srs_lagrange_form)
@@ -91,9 +109,11 @@ def cmd_prove(args):
     setup = api.SetupForProver(
         circuit, CrsHandle(args.srs_monomial_form),
         CrsHandle(args.srs_lagrange_form) if args.srs_lagrange_form else None,
-        backend=TorchBackend(args.backend))
+        backend=_backend(args))
     log.info("Proving...")
     proof = setup.prove(circuit, args.transcript)
+    if not _writes(setup.backend):
+        return
     _no_clobber(args.proof, args.overwrite, "proof")
     proof.save(args.proof)
     log.info("Proof saved to %s", args.proof)
@@ -129,8 +149,10 @@ def cmd_generate_verifier(args):
 def cmd_export_verification_key(args):
     circuit = _load_circuit(_resolve_circuit_file(args.circuit))
     setup = api.SetupForProver(circuit, CrsHandle(args.srs_monomial_form),
-                               backend=TorchBackend(args.backend))
+                               backend=_backend(args))
     vk = setup.make_verification_key()
+    if not _writes(setup.backend):
+        return
     _no_clobber(args.vk, args.overwrite, "vk")
     vk.save(args.vk)
     log.info("Verification key saved to %s", args.vk)
@@ -158,8 +180,11 @@ def cmd_export_recursive_vk(args):
     if args.num_inputs != old_vk.num_inputs:
         sys.exit(f"--num_inputs {args.num_inputs} != old vk num_inputs {old_vk.num_inputs}")
     _no_clobber(args.vk, args.overwrite, "recursive vk")
+    backend = _backend(args)
     rvk = make_recursive_vk(CrsHandle(args.srs_monomial_form), old_vk,
-                            args.num_proofs_to_check, backend=TorchBackend(args.backend))
+                            args.num_proofs_to_check, backend=backend)
+    if not _writes(backend):
+        return
     rvk.save(args.vk)
     log.info("Recursive verification key saved to %s", args.vk)
 
@@ -170,8 +195,10 @@ def cmd_recursive_prove(args):
     proofs = _load_proof_list(args.old_proof_list)
     _no_clobber(args.new_proof, args.overwrite, "recursive proof")
     _no_clobber(args.proofjson, args.overwrite, "recursive proof json")
-    agg = prove_aggregation(CrsHandle(args.srs_monomial_form), proofs, old_vk,
-                            backend=TorchBackend(args.backend))
+    backend = _backend(args)
+    agg = prove_aggregation(CrsHandle(args.srs_monomial_form), proofs, old_vk, backend=backend)
+    if not _writes(backend):
+        return
     agg.save(args.new_proof)
     log.info("Recursive proof saved to %s", args.new_proof)
     with open(args.proofjson, "w") as f:
@@ -219,9 +246,10 @@ def build_parser():
         prog="plonkit-tpu-torch",
         description="A zkSNARK toolkit to work with circom zkSNARKs DSL in plonk proof "
                     "system (PyTorch/CUDA)")
-    p.add_argument("--backend", choices=["cuda", "cpu"], default="cuda",
+    p.add_argument("--backend", choices=["cuda", "cpu", "mesh"], default="cuda",
                    help="cuda (default): prove on the card, fail without one; "
-                        "cpu: the kernels' plain versions")
+                        "cpu: the kernels' plain versions; mesh: the mesh backend "
+                        "over the card(s), one rank per process")
     sub = p.add_subparsers(dest="command", required=True)
 
     sp = sub.add_parser("analyse", help="Analyse the circuit and output some stats")

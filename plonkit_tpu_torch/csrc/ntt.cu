@@ -19,11 +19,15 @@
 // K5 replaces pallas_kernels.py `butterfly` (_butterfly_body), which no JAX
 // path calls.  Here it carries every stage of gpu/ntt.py's inverse
 // transform, the transpose of the Pease DIF: stage t reads the even rows
-// of the buffer as lo and the odd rows as hi (`in_stride` 2: thread i reads
+// of the buffer as lo and the odd rows as hi (`row_stride` 2: thread i reads
 // rows 2i and 2i + 1, 64 contiguous bytes) and writes the two outputs as
 // the two halves of the next buffer, so the deinterleave is folded into the
 // loads and the stage copies nothing else.  Same bytes and product as K3:
-// bound by memory at 2^20 points.
+// bound by memory at 2^20 points.  The batched transforms of the 4-step
+// NTT (gpu/ntt.py ntt_batched, parallel/ntt.py) keep the transform axis
+// outermost, [m, B] rows, so a stage's even and odd rows are blocks of B
+// contiguous rows 2B apart: `batch` B makes thread i read row
+// (i / B) * row_stride + i % B (B = 1 is the plain transform).
 //
 // C interface for ctypes, built like field.cu (gpu/build.py): launches on
 // the given stream, allocates nothing, does not synchronise, returns
@@ -73,28 +77,35 @@ __global__ void butterfly_dit_kernel(const uint32_t* __restrict__ lo,
                                      const uint32_t* __restrict__ w,
                                      uint32_t* __restrict__ out_lo,
                                      uint32_t* __restrict__ out_hi,
-                                     int64_t n, int64_t in_stride, FieldParams f) {
+                                     int64_t n, int64_t row_stride, int64_t batch,
+                                     FieldParams f) {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const Fe a = load_fe(lo, i * in_stride);
-    const Fe t = fe_mont_mul(load_fe(w, i), load_fe(hi, i * in_stride), f);
+    const int64_t src = batch == 1 ? i * row_stride : (i / batch) * row_stride + i % batch;
+    const Fe a = load_fe(lo, src);
+    const Fe t = fe_mont_mul(load_fe(w, i), load_fe(hi, src), f);
     store_fe(out_lo, i, fe_add(a, t, f));
     store_fe(out_hi, i, fe_sub(a, t, f));
 }
 
 }  // namespace
 
-// lo and hi: n rows each, `in_stride` rows apart (1 = contiguous); w,
-// out_lo and out_hi: n contiguous rows.
+// lo and hi: n rows each, in blocks of `batch` contiguous rows whose
+// starts are `row_stride` rows apart (batch 1, row_stride 1 = contiguous);
+// w, out_lo and out_hi: n contiguous rows.
 extern "C" int plonkit_butterfly(const void* lo, const void* hi, const void* w,
                                  void* out_lo, void* out_hi, long long n,
-                                 long long in_stride, int field, void* stream) {
+                                 long long row_stride, long long batch, int field,
+                                 void* stream) {
     FieldParams f;
-    if (!field_params(field, &f) || n < 0 || in_stride < 1) return (int)cudaErrorInvalidValue;
+    if (!field_params(field, &f) || n < 0 || row_stride < 1 || batch < 1 ||
+        (batch > 1 && (n % batch || row_stride < batch)))
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     const long long blocks = (n + kThreads - 1) / kThreads;
     butterfly_dit_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)lo, (const uint32_t*)hi, (const uint32_t*)w,
-        (uint32_t*)out_lo, (uint32_t*)out_hi, (int64_t)n, (int64_t)in_stride, f);
+        (uint32_t*)out_lo, (uint32_t*)out_hi, (int64_t)n, (int64_t)row_stride,
+        (int64_t)batch, f);
     return (int)cudaGetLastError();
 }

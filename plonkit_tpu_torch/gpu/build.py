@@ -35,7 +35,8 @@ _ARGTYPES = {
     "ntt": {"plonkit_butterfly_dif":
             [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
             "plonkit_butterfly":
-            [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, _P]},
+            [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, _P]},
     "msm": {"plonkit_bucket_sweep": [_P] * 7 + [ctypes.c_longlong, ctypes.c_longlong, _P],
             "plonkit_padd": [_P] * 9 + [ctypes.c_longlong, _P],
             "plonkit_segment_fold": [_P] * 9 + [ctypes.c_longlong, _P],

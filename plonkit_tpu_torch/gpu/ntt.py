@@ -25,6 +25,10 @@ result is fully reduced, so both forms give the same rows.  The bit
 reversal is an `index_select`, data movement as the JAX package leaves it
 to XLA.  Tables (domain-root powers, bit-reversal indices, coset powers)
 are built on the device through K1 and cached per size.
+
+Both forms run batched (ntt_batched): B independent length-m transforms
+over [m, B, 8], the building block of parallel/ntt.py's 4-step transform;
+ntt and intt are its B = 1 case.
 """
 
 from functools import lru_cache
@@ -55,40 +59,51 @@ def butterfly_dif(lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
     return u, v
 
 
-def _check_strided_rows(lo: torch.Tensor, hi: torch.Tensor, like: torch.Tensor) -> None:
-    """lo and hi: [n, 8] int32 views shaped and placed like `like`, rows a
-    whole number of rows apart (as y[0::2] and y[1::2] are), limbs dense."""
+def _strided_rows(lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
+    """(rows, row_stride, batch) of K5's lo and hi: int32 views shaped and
+    placed alike, limbs dense, either [n, 8] with rows a whole number of
+    rows apart (as y[0::2] and y[1::2] are), or [h, B, 8]: h blocks of B
+    contiguous rows a whole number of rows apart (the even and odd rows of
+    a batched stage).  w holds one contiguous row for each of their rows."""
     for t in (lo, hi):
-        if t.dtype != torch.int32 or t.shape != like.shape or t.device != like.device:
-            raise ValueError(f"expected {tuple(like.shape)} int32 on {like.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if t.stride() != lo.stride() or t.stride(1) != 1 or t.stride(0) % NLIMBS:
+        if (t.dtype != torch.int32 or t.shape != lo.shape or t.device != w.device
+                or t.dim() not in (2, 3) or t.shape[-1] != NLIMBS):
+            raise ValueError(f"expected lo and hi of one shape [n, {NLIMBS}] or "
+                             f"[h, B, {NLIMBS}] int32 on {w.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if (t.stride() != lo.stride() or t.stride(-1) != 1 or t.stride(0) % NLIMBS
+                or (t.dim() == 3 and t.stride(1) != NLIMBS)):
             raise ValueError("lo and hi must share a row stride that is a multiple of a row")
         if t.is_cuda and t.data_ptr() % 16:
             raise ValueError("operand rows must be 16-byte aligned")
+    batch = lo.shape[1] if lo.dim() == 3 else 1
+    rows = lo.shape[0] * batch
+    if w.shape[0] != rows:
+        raise ValueError(f"{w.shape[0]} twiddle rows for {rows} butterflies")
+    return rows, lo.stride(0) // NLIMBS, batch
 
 
 def butterfly(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor,
               out: torch.Tensor = None):
     """K5, radix-2 DIT: t = w * hi; (lo + t, lo - t), each [N, 8].  lo and
-    hi may be row-strided views of one buffer (y[0::2], y[1::2]); w is
+    hi may be row-strided views of one buffer (y[0::2], y[1::2]), or
+    [h, B, 8] views of its blocks of B rows (a batched stage); w is
     contiguous.  The two outputs are the halves of `out`, a contiguous
     [2N, 8] buffer (a fresh one if it is not given)."""
     fk.check_operands(w)
-    _check_strided_rows(lo, hi, w)
-    n = lo.shape[0]
+    n, row_stride, batch = _strided_rows(lo, hi, w)
     if out is None:
         out = torch.empty((2 * n, NLIMBS), dtype=torch.int32, device=lo.device)
     fk.check_operands(out)
     if out.shape[0] != 2 * n or out.device != lo.device:
         raise ValueError(f"out must be [{2 * n}, {NLIMBS}] on {lo.device}")
     if not lo.is_cuda:
-        out[:n], out[n:] = mont.butterfly(spec, lo, hi, w)
+        out[:n], out[n:] = mont.butterfly(spec, lo.reshape(n, NLIMBS), hi.reshape(n, NLIMBS), w)
     elif n:
         lib = build.load("ntt")
         build.check(lib.plonkit_butterfly(
             lo.data_ptr(), hi.data_ptr(), w.data_ptr(), out.data_ptr(),
-            out[n:].data_ptr(), n, lo.stride(0) // NLIMBS, spec.kernel_id,
+            out[n:].data_ptr(), n, row_stride, batch, spec.kernel_id,
             fk.stream_ptr(lo)), "K5 butterfly")
         launches["butterfly"] += 1
     return out[:n], out[n:]
@@ -129,40 +144,56 @@ def _tables(n: int, inverse: bool, device: str):
     return omega_pows, rev, n_inv
 
 
-def _stage_twiddles(omega_pows: torch.Tensor, t: int, half: int) -> torch.Tensor:
-    """tw[t][j] = w^(2^t * (j >> t)) for j < half, [half, 8]."""
-    return omega_pows[::1 << t][:half >> t].repeat_interleave(1 << t, dim=0)
+def _stage_twiddles(omega_pows: torch.Tensor, t: int, half: int, batch: int = 1) -> torch.Tensor:
+    """tw[t][j] = w^(2^t * (j >> t)) for j < half, each row repeated for
+    the `batch` columns of a batched stage: [half * batch, 8]."""
+    return omega_pows[::1 << t][:half >> t].repeat_interleave(batch << t, dim=0)
+
+
+def ntt_batched(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """values: [m, B, 8] Montgomery rows -> length-m transforms along axis 0,
+    one for each of the B columns (plonkit_tpu/tpu/ntt.py ntt_batched, whose
+    [16, m, B] keeps the transform axis first too).  The transform axis is
+    outermost, so a stage's halves y[:m/2] and y[m/2:] are contiguous
+    blocks of m/2 * B rows (K3 as it is, the stage's twiddle row repeated
+    B times) and its even and odd rows are blocks of B rows 2B apart (K5's
+    batch).  inverse=True includes the 1/m scaling."""
+    m, batch = values.shape[0], values.shape[1]
+    if m == 1:
+        return values
+    omega_pows, rev, m_inv = _tables(m, inverse, str(values.device))
+    half = m // 2
+    rows = m * batch
+    if not inverse:
+        # Pease DIF on K3, then one bit-reversal gather
+        y = values.reshape(rows, NLIMBS).contiguous()
+        for t in range(m.bit_length() - 1):
+            u, v = butterfly_dif(y[:half * batch], y[half * batch:],
+                                 _stage_twiddles(omega_pows, t, half, batch))
+            y = torch.stack([u.view(half, batch, NLIMBS), v.view(half, batch, NLIMBS)],
+                            dim=1).reshape(rows, NLIMBS)
+        return y.view(m, batch, NLIMBS).index_select(0, rev)
+    # the transposed form on K5, then 1/m by K1
+    y = values.index_select(0, rev).reshape(rows, NLIMBS)
+    for t in reversed(range(m.bit_length() - 1)):
+        pairs = y.view(half, 2 * batch, NLIMBS)
+        out = torch.empty_like(y)
+        butterfly(FR, pairs[:, :batch], pairs[:, batch:],
+                  _stage_twiddles(omega_pows, t, half, batch), out)
+        y = out
+    return fk.mul(FR, y, m_inv.expand(rows, NLIMBS).contiguous()).view(m, batch, NLIMBS)
 
 
 def ntt(values: torch.Tensor) -> torch.Tensor:
     """values: [n, 8] Montgomery rows in natural order -> evaluations on the
     size-n domain (Pease DIF on K3)."""
-    n = values.shape[0]
-    if n == 1:
-        return values
-    omega_pows, rev, _ = _tables(n, False, str(values.device))
-    half = n // 2
-    y = values.contiguous()
-    for t in range(n.bit_length() - 1):
-        u, v = butterfly_dif(y[:half], y[half:], _stage_twiddles(omega_pows, t, half))
-        y = torch.stack([u, v], dim=1).reshape(n, NLIMBS)
-    return y.index_select(0, rev)
+    return ntt_batched(values.reshape(-1, 1, NLIMBS)).reshape(-1, NLIMBS)
 
 
 def intt(values: torch.Tensor) -> torch.Tensor:
     """values: [n, 8] evaluations on the size-n domain -> coefficients
     (the transposed Pease form on K5, then n^-1 by K1)."""
-    n = values.shape[0]
-    if n == 1:
-        return values
-    omega_pows, rev, n_inv = _tables(n, True, str(values.device))
-    half = n // 2
-    y = values.index_select(0, rev)
-    for t in reversed(range(n.bit_length() - 1)):
-        out = torch.empty_like(y)
-        butterfly(FR, y[0::2], y[1::2], _stage_twiddles(omega_pows, t, half), out)
-        y = out
-    return fk.mul(FR, y, n_inv.expand(n, NLIMBS).contiguous())
+    return ntt_batched(values.reshape(-1, 1, NLIMBS), inverse=True).reshape(-1, NLIMBS)
 
 
 @lru_cache(maxsize=8)

@@ -340,6 +340,20 @@ def load_crs_g1_limbs(filename: str, count: int = None):
     return x, y, inf
 
 
+def load_witness_limbs(filename: str):
+    """Parse a binary .wtns straight into [N, 8] int32 rows of raw 32-bit
+    limbs (the port's layout, ready for torch.from_numpy;
+    plonkit_tpu/serialization.py's load_witness_limbs gives [16, N] 16-bit
+    limbs).  The values section is the file's last 32 * N bytes,
+    little-endian, as frontend/witness.load_witness_from_bin reads it."""
+    import numpy as np
+    with open(filename, "rb") as f:
+        data = f.read()
+    n = struct.unpack_from("<I", data, 4 + 4 + 4 + 12 + 4 + 32)[0]
+    values = np.frombuffer(data, dtype="<i4", count=8 * n, offset=len(data) - 32 * n)
+    return values.astype(np.int32).reshape(n, 8)
+
+
 def save_crs_g1_limbs(filename: str, x, y, inf, g2_points) -> None:
     """Write an SRS key (the layout of Crs.write) from canonical limb rows,
     the inverse of load_crs_g1_limbs: x, y [N, 8] uint32, inf [N] bool,

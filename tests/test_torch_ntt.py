@@ -87,19 +87,25 @@ def test_powers_match_host():
 
 
 def test_split_coset_transforms_match_monolithic(monkeypatch):
-    """TorchBackend's split coset LDE / iNTT (backend_jax.py:457-513) at a
-    threshold lowered from 2^24 to 4 * 256 elements."""
+    """TorchBackend's split coset LDE / iNTT (backend_jax.py:457-513) and
+    its split coset NTT (four folded quarter transforms) at a threshold
+    lowered from 2^24 to 4 * 256 elements."""
     n = 256
     xs = rand_elems(n, 30)
     b = TorchBackend(device="cpu")
     v = FrVec(port_vec(xs))
     lde_mono = b.coset_lde(v, 4)
     m_mono = b.coset_intt(lde_mono)
+    wide = FrVec(port_vec(rand_elems(4 * n, 31)))
+    c_mono = b.coset_ntt(wide)
     monkeypatch.setattr(backend_torch, "SPLIT_NTT_MIN", 4 * n)
     lde_split = b.coset_lde(v, 4)
     assert torch.equal(lde_mono.data, lde_split.data)
     m_split = b.coset_intt(lde_mono)
     assert torch.equal(m_mono.data, m_split.data)
+    c_split = b.coset_ntt(wide)
+    assert torch.equal(c_mono.data, c_split.data)
+    assert torch.equal(b.coset_intt(c_split).data, wide.data)
     back = ints(m_split.data)
     assert back[:n] == xs and not any(back[n:])
     # and the split paths are what the JAX package computes there
@@ -107,3 +113,5 @@ def test_split_coset_transforms_match_monolithic(monkeypatch):
     from plonkit_tpu.backend_jax import FrVec as RefVec, JaxBackend
     ref = JaxBackend()
     assert same(lde_split.data, ref._coset_lde_split(RefVec(planar), 4, FR_GENERATOR).data)
+    wide_planar = jnp.asarray(ref_mont.FR.to_mont_np(rand_elems(4 * n, 31)))
+    assert same(c_split.data, ref.coset_ntt(RefVec(wide_planar)).data)
