@@ -34,7 +34,14 @@ Phases, each printing a JSON line with its wall seconds:
    and on every level of the fold of 2^20 0/1 scalars (~2^19 entries in
    one bucket); K7w window_sums on the first level of that MSM's 22 x 4096
    bucket table (timed), and on every level; K8 combine in one launch over
-   the 22 random Jacobian window totals (c = 12) of each of 11 MSMs;
+   the 22 random Jacobian window totals (c = 12) of each of 11 MSMs; K9
+   balanced_digits, K10 dft_product and K11 fold_redc (the tensor-core NTT,
+   gpu/ntt_mxu.py) at the radix-128 level of a 2^20-point transform (8192
+   columns), K10 timed beside torch._int_mm on the same operands (the
+   yardstick; the port never calls it) and also held at the radix-256
+   level of 2^22 points (the 71 MB table), at radix 16 (depth padded from
+   528 to 544) and on one m16n8k32 tile; and field_kernels.batch_inverse
+   (a composition over K1) at 2^20: its time, K1 launches and bound;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
@@ -46,8 +53,13 @@ Phases, each printing a JSON line with its wall seconds:
    the CPU (plain versions, commitments in the host Pippenger);
 6. main path at a 2^20 domain: the synthetic multiplication chain,
    SetupForProver, make_verification_key, prove, verify, through the entry
-   points a user calls, commitments on the card ("msm": "device"), with the
-   launch count of every kernel read from that run alone, and the launches
+   points a user calls, commitments on the card ("msm": "device"), under
+   PLONKIT_TPU_NTT's default, auto (the tensor cores for every transform
+   of 512 points or more), with the launch count of every kernel read from
+   setup, vk and the first prove alone (each must launch, K3/K5 excepted);
+   then a warm prove under auto and one under pease, the butterflies, each
+   with its own launch counts (K3 and K5 must launch in the pease one),
+   whose proof.bin must be the first proof's bytes; and the launches
    of the bucket reduction (K7r, K7w, K7) per commitment, at most 8, and
    one K8 launch for each group of commitments the backend was asked for
    (a commit_many call, or a single commit).  The proof must verify and a
@@ -95,7 +107,8 @@ Phases, each printing a JSON line with its wall seconds:
    2^24-point coset LDE of one 2^22-point vector, its coset iNTT and the
    2^24-point coset NTT of that LDE, split and monolithic (the threshold
    raised in this process), equal bit for bit, and the iNTT giving the
-   vector back;
+   vector back, under each NTT engine (auto and pease), the two engines'
+   results equal too;
 11. contract: the rendered verifiers run in the port's interpreter
    (solvm.py, through contract.py) on the card's proofs: phase 7's
    verifier.sol on its keccak proof.json / public.json, phase 9's
@@ -132,17 +145,30 @@ Phases, each printing a JSON line with its wall seconds:
    bit for bit; the synthetic chain at 2^16 (n1 = n2 = 2^8) proved on the
    mesh, every commitment through DistributedMSMContext, gives the
    single-device vk.bin and proof.bin.  The ranks load the libraries
-   phase 1 built: none is rebuilt.
+   phase 1 built: none is rebuilt;
+15. ntt_engines (after phase 10's split check, before phase 12): both NTT
+   engines on the same random vectors, the butterflies (gpu/ntt.py, K3/K5)
+   and the tensor cores (gpu/ntt_mxu.py, K9-K11): ntt and intt at 2^20,
+   the coset LDE x4 of a 2^20 vector, coset_ntt and coset_intt at 2^22 and
+   a monolithic 2^24 coset_ntt, and ntt at 2^9 to 2^18 (where auto's
+   threshold lies), equal bit for bit, each inverse giving its vector
+   back; each engine's device ms and launches per transform, and the
+   sizes at which the tensor cores take less time.
+
+Every phase after phase 1 runs under PLONKIT_TPU_NTT's default, auto, so
+on the card the tensor-core engine carries every transform of 512 points
+or more, and every byte check above holds it.
 
 Then the kernels line (each row with its launches on the main path of
-phase 6, on the recursive path of phase 10, in the device SRS of phase 2
-and on the mesh path of phase 13), the card line, and as the last line
+phase 6, in phase 6's pease prove, on the recursive path of phase 10, in
+the device SRS of phase 2 and on the mesh path of phase 13), the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and no result line is printed.  Without a CUDA device it stops at once.
 """
 
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import os
@@ -169,6 +195,7 @@ SRS_CHECK_LOG2 = 12     # key prefix held against srs.py byte for byte
 POSEIDON_LOG2 = 20      # the Poseidon chain's domain (phases 12, 13)
 POSEIDON_HASHES = 454   # its chain length (scratch/bench_poseidon_2pow20.log)
 MESH_RANKS = 4          # gloo ranks sharing the card (phase 14)
+SWEEP_NTT_LOG2 = (9, 12, 14, 16, 18)    # phase 15's ntt sizes below the main one
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
@@ -188,6 +215,7 @@ K8_BATCH = 11                              # MSMs of the K8 row: the vk's group
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")   # domain-64 circuit, its pair
 AGG_FIXTURES = os.path.join(REPO, "scratch", "recursive_r5")  # the 2^21 aggregate of phase 9
+INT8_OPS_PER_S = 1979e12   # dense int8 tensor-core operations (2 a multiply-add)
 SOURCES = {
     "K1 mul": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:149"),
     "K2a add": ("plonkit_tpu_torch/csrc/field.cu", "plonkit_tpu/tpu/pallas_kernels.py:153"),
@@ -201,7 +229,15 @@ SOURCES = {
     "K7r segment_fold": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:238"),
     "K7w window_sums": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm.py:304"),
     "K8 combine": ("plonkit_tpu_torch/csrc/msm.cu", "plonkit_tpu/tpu/msm_pallas.py:271"),
+    # XLA in tpu/ntt_mxu.py, not Pallas: _to_balanced, the dot_general of
+    # _dft_base, _fold_redc
+    "K9 balanced_digits": ("plonkit_tpu_torch/csrc/ntt_mxu.cu",
+                           "plonkit_tpu/tpu/ntt_mxu.py:156"),
+    "K10 dft_product": ("plonkit_tpu_torch/csrc/ntt_mxu.cu", "plonkit_tpu/tpu/ntt_mxu.py:212"),
+    "K11 fold_redc": ("plonkit_tpu_torch/csrc/ntt_mxu.cu", "plonkit_tpu/tpu/ntt_mxu.py:172"),
 }
+BUTTERFLIES = ("K3 butterfly_dif", "K5 butterfly")
+TENSOR_CORE_NTT = ("K9 balanced_digits", "K10 dft_product", "K11 fold_redc")
 
 
 _print_lock = threading.Lock()
@@ -387,11 +423,14 @@ def _mismatches(got, want) -> int:
     return sum(int((g != w).any(dim=1).sum()) for g, w in zip(got, want))
 
 
-def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=True, **extra):
+def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=True,
+         int8_ops=0, library=None, **extra):
     """Run kernel and plain version, compare them, time both (the kernel
     over `reps` launches after a warm-up, the plain version on the call
     compared, after a warm-up call unless warm_plain is False), and reckon
-    the bound from this input's bytes and 32-bit multiplies."""
+    the bound from this input's bytes, 32-bit multiplies and int8
+    tensor-core operations.  `library`, one PyTorch call computing the same
+    function, is timed like the kernel."""
     import torch
     got = kern()
     if warm_plain:
@@ -404,7 +443,7 @@ def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=Tru
     err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
                   .abs().max()) for g, w in zip(got, want))
     bytes_s = bytes_moved / HBM_BYTES_PER_S
-    ops_s = int32_muls / INT32_MUL_PER_S
+    ops_s = max(int32_muls / INT32_MUL_PER_S, int8_ops / INT8_OPS_PER_S)
     source, replaces = SOURCES[name]
     return dict({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -412,9 +451,10 @@ def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=Tru
         "ms": time_ms(kern, reps), "plain_ms": plain_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-        "bound_bytes": bytes_moved, "bound_int32_muls": int32_muls,
-        "bound_basis": "max(bytes / 3.35e12 B/s, int32 multiplies / 16.75e12 per s)",
-        "library_ms": None,
+        "bound_bytes": bytes_moved, "bound_int32_muls": int32_muls, "bound_int8_ops": int8_ops,
+        "bound_basis": "max(bytes / 3.35e12 B/s, int32 multiplies / 16.75e12 per s, "
+                       "int8 operations / 1.979e15 per s)",
+        "library_ms": time_ms(library, reps) if library else None,
     }, **extra)
 
 
@@ -660,15 +700,105 @@ def _msm_rows(ctx) -> list:
     return [k6, k7, k7r, k7w, k8]
 
 
+def _ntt_mxu_rows() -> list:
+    """K9, K10 and K11 on the card against their plain versions on the
+    card, at the radix-128 level of a 2^20-point transform: 2^20 random
+    canonical rows as [128, 8192, 8], the forward table, and the level's
+    digits and product.  K10 also at the radix-256 level of 2^22 points,
+    at radix 16 (the padded depth) and on one m16n8k32 tile."""
+    import torch
+    from plonkit_tpu_torch.gpu import ntt_mxu as gmxu
+    from plonkit_tpu_torch.gpu.mont import to_tensor
+    rng = np.random.default_rng(SEED + 4)
+
+    def level(r, batch):
+        x = to_tensor(_random_fr_rows(rng, r * batch, 0), DEVICE).view(r, batch, 8)
+        table = gmxu._dft_table(r, False, DEVICE)
+        digits = gmxu.balanced_digits(x)
+        return x, table, digits, gmxu.dft_product(table, digits)
+
+    def product_mismatches(table, digits):
+        return _mismatches((gmxu.dft_product(table, digits),),
+                           (gmxu.dft_product_plain(table, digits),))
+
+    r, batch = 128, (1 << MAIN_LOG2) // 128
+    x, table, digits, g = level(r, batch)
+    n, m, kp = r * batch, table.shape[0], table.shape[1]
+    k9 = _row("K9 balanced_digits", lambda: gmxu.balanced_digits(x),
+              lambda: gmxu.balanced_digits_plain(x), n, 32 * n + batch * kp, 0, 20,
+              radix=r, columns=batch)
+    lib_mism = _mismatches((torch._int_mm(table, digits.t()),), (g,))
+    checks = {}
+    for label, (rr, bb) in {f"radix 256, 2^{PAIR_LOG2} points": (256, (1 << PAIR_LOG2) // 256),
+                            "radix 16, 512 points (depth 528 -> 544)": (16, 32)}.items():
+        _, t, d, _ = level(rr, bb)
+        checks[label] = {"shape": [t.shape[0], bb, t.shape[1]],
+                         "mismatches": product_mismatches(t, d)}
+        del t, d
+    gen = torch.Generator().manual_seed(SEED)
+    tile_a = torch.randint(-128, 128, (16, 32), generator=gen, dtype=torch.int8).to(DEVICE)
+    tile_x = torch.randint(-128, 128, (8, 32), generator=gen, dtype=torch.int8).to(DEVICE)
+    checks["one m16n8k32 tile"] = {"shape": [16, 8, 32],
+                                   "mismatches": product_mismatches(tile_a, tile_x)}
+    k10 = _row("K10 dft_product", lambda: gmxu.dft_product(table, digits),
+               lambda: gmxu.dft_product_plain(table, digits), m * batch,
+               m * kp + batch * kp + 4 * m * batch, 0, 20, warm_plain=False,
+               int8_ops=2 * m * batch * (r * gmxu.NB),
+               library=lambda: torch._int_mm(table, digits.t()),
+               library_call="torch._int_mm(A, X.T)", library_mismatches=lib_mism,
+               shape=[m, batch, kp], checks=checks)
+    k10["mismatches"] += lib_mism + sum(c["mismatches"] for c in checks.values())
+    # REDC: one 32-bit step (1 + 16 multiply instructions) and one 16-bit step
+    k11 = _row("K11 fold_redc", lambda: gmxu.fold_redc(g).view(-1, 8),
+               lambda: gmxu.fold_redc_plain(g).view(-1, 8), n, 4 * gmxu.NB * n + 32 * n,
+               34 * n, 20, radix=r, columns=batch)
+    return [k9, k10, k11]
+
+
+def _batch_inverse_record() -> dict:
+    """gpu/field_kernels.batch_inverse over Fr at 2^20 (pallas_kernels.py:173
+    batch_inverse, a composition over K1, not a kernel): its ms (CUDA events
+    over 5 calls after a warm-up; each call reads one 32-byte total back),
+    its K1 launches a call, its bound, and the bytes bound of those
+    launches (three rows a full-width launch); checked by x * x^-1 = 1 on
+    the nonzero rows."""
+    import torch
+    from plonkit_tpu_torch.gpu import field_kernels as fk
+    from plonkit_tpu_torch.gpu.mont import FR, to_tensor
+    n = 1 << KERNEL_LOG2
+    v = to_tensor(_random_fr_rows(np.random.default_rng(SEED + 7), n, 0), DEVICE)
+    zero = (v == 0).all(dim=1)
+    before = fk.launches["mul"]
+    inv = fk.batch_inverse(FR, v)
+    k1 = fk.launches["mul"] - before
+    one = fk.mul(FR, v, inv)
+    ok = bool(torch.equal(one[~zero], FR.const(1, int((~zero).sum()), DEVICE))
+              and not inv[zero].any())
+    # the function's own bound: n rows read and written once, and three
+    # Montgomery products a row (prefix, suffix, the inverse's combine)
+    bytes_s = 2 * 32 * n / HBM_BYTES_PER_S
+    ops_s = 3 * MONT_MUL_OPS * n / INT32_MUL_PER_S
+    full = k1 - 1                       # the product of the total is one row
+    return {"name": "batch_inverse", "replaces": "plonkit_tpu/tpu/pallas_kernels.py:173",
+            "elements": n, "inverse_checked": ok, "k1_launches_per_call": k1,
+            "ms": time_ms(lambda: fk.batch_inverse(FR, v), 5),
+            "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "launches_bound_ms": (full * 3 * 32 * n + 3 * 32) / HBM_BYTES_PER_S * 1e3}
+
+
 def phase_kernels(ctx) -> list:
     t0 = time.perf_counter()
-    rows = _field_rows() + _msm_rows(ctx)
+    rows = _field_rows() + _msm_rows(ctx) + _ntt_mxu_rows()
+    binv = _batch_inverse_record()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
+          "batch_inverse": binv,
           "mismatches": {r["name"]: r["mismatches"] for r in rows},
           "batched_mismatches": {r["name"]: r["batched"]["mismatches"]
                                  for r in rows if "batched" in r}})
     bad = [r["name"] for r in rows
            if r["mismatches"] or r.get("batched", {}).get("mismatches")]
+    bad += [] if binv["inverse_checked"] else ["batch_inverse"]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -759,22 +889,25 @@ def _host_commit_backend():
 
 
 def _reset_launches() -> None:
-    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt
-    for counts in (fk.launches, ntt.launches, mk.launches):
+    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt, ntt_mxu
+    for counts in (fk.launches, ntt.launches, mk.launches, ntt_mxu.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _launch_counts() -> dict:
     """Launches of every kernel since the last _reset_launches, by row name."""
-    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt
+    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt, ntt_mxu
     return {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
             "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
             "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
             "K6 bucket_sweep": mk.launches["bucket_sweep"], "K7 padd": mk.launches["padd"],
             "K7r segment_fold": mk.launches["segment_fold"],
             "K7w window_sums": mk.launches["window_sums"],
-            "K8 combine": mk.launches["combine"]}
+            "K8 combine": mk.launches["combine"],
+            "K9 balanced_digits": ntt_mxu.launches["balanced_digits"],
+            "K10 dft_product": ntt_mxu.launches["dft_product"],
+            "K11 fold_redc": ntt_mxu.launches["fold_redc"]}
 
 
 @contextlib.contextmanager
@@ -840,11 +973,15 @@ def phase_main(key: str):
         t0 = time.perf_counter()
         proof = setup.prove(circuit)
         times["prove"] = time.perf_counter() - t0
+        stages = dict(profiling.last_timings)
     launches = _launch_counts()
     commitments = mk.launches["bucket_sweep"]
     per_commitment = (mk.launches["segment_fold"] + mk.launches["window_sums"]
                       + mk.launches["padd"]) / max(1, commitments)
-    stages = dict(profiling.last_timings)
+    engines = _warm_proves_by_engine(setup, circuit)
+    digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+    same_engines = {e: r["proof_sha256"] == digest for e, r in engines.items()}
+    launches_pease = engines["pease"]["launches"]
     host_msm = stages.get("host msm", 0.0)
 
     t0 = time.perf_counter()
@@ -863,6 +1000,8 @@ def phase_main(key: str):
     emit({"phase": "main", "domain": domain, "msm": "device",
           "verified": ok, "tampered_rejected": rejected,
           "identical_to_host_commitments": same,
+          "warm_prove_by_ntt_engine": engines, "first_proof_sha256": digest,
+          "engines_give_the_first_proof": same_engines,
           "seconds": {k: round(v, 3) for k, v in times.items()},
           "stages_s": {k: round(v, 3) for k, v in stages.items()},
           "msm_s": {"vk": round(msm_vk, 3),
@@ -875,6 +1014,8 @@ def phase_main(key: str):
         raise AssertionError(f"verify: proof {ok}, tampered rejected {rejected}")
     if not all(same.values()):
         raise AssertionError(f"device and host commitments give other bytes: {same}")
+    if not all(same_engines.values()):
+        raise AssertionError(f"the NTT engines give other proof bytes: {engines}")
     if host_msm:
         raise AssertionError("a commitment of the main path ran on the host")
     if per_commitment > REDUCTION_LAUNCHES_MAX:
@@ -884,11 +1025,49 @@ def phase_main(key: str):
         raise AssertionError(f"K8 launched {launches['K8 combine']} times and K6 "
                              f"{commitments} for the commitment groups {groups}: one K8 "
                              "launch a group expected")
-    idle = [k for k, v in launches.items() if v == 0]
+    # under auto the tensor cores take every transform of this path; the
+    # butterflies must launch in the pease prove instead
+    idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
+    idle = [k for k in BUTTERFLIES if launches_pease[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in the pease prove: {idle}")
     profile_prove(setup, circuit, vk)
-    return launches, circuit, vk.to_bytes(), proof.to_bytes()
+    return launches, launches_pease, circuit, vk.to_bytes(), proof.to_bytes()
+
+
+@contextlib.contextmanager
+def _ntt_engine(engine: str):
+    """backend_torch's NTT engine set to `engine` (the value PLONKIT_TPU_NTT
+    gives it when the process starts) for the block."""
+    from plonkit_tpu_torch import backend_torch
+    saved, backend_torch._NTT_ENGINE = backend_torch._NTT_ENGINE, engine
+    try:
+        yield
+    finally:
+        backend_torch._NTT_ENGINE = saved
+
+
+def _warm_proves_by_engine(setup, circuit) -> dict:
+    """A warm prove under each NTT engine: auto (on the card the tensor
+    cores for every transform of 512 points or more) and pease (the
+    butterflies; its first use in the process, so its time includes
+    building its twiddle tables).  Each proof.bin's sha256, wall s and
+    the launches of every kernel in that prove alone."""
+    import torch
+    out = {}
+    for engine in ("auto", "pease"):
+        with _ntt_engine(engine):
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blob = setup.prove(circuit).to_bytes()
+            torch.cuda.synchronize()
+            out[engine] = {"prove_warm_s": time.perf_counter() - t0,
+                           "proof_sha256": hashlib.sha256(blob).hexdigest(),
+                           "launches": _launch_counts()}
+    return out
 
 
 def _prove_twice(setup, circuit, times: dict, label: str = ""):
@@ -1003,7 +1182,10 @@ def phase_mesh(setup, circuit, vk_bytes: bytes, proof_bytes: bytes) -> dict:
         raise AssertionError(f"the mesh gives other bytes than one device: {same}")
     if backend.gathered.get("commit") or not backend.distributed.get("commit"):
         raise AssertionError("a commitment of the mesh path left DistributedMSMContext")
-    idle = [k for k, v in launches.items() if v == 0 and k != "K2b sub"]
+    # the mesh's 4-step runs on the butterflies (parallel/ntt.py), as the
+    # JAX package's does, so the tensor-core NTT may idle
+    idle = [k for k, v in launches.items()
+            if v == 0 and k != "K2b sub" and k not in TENSOR_CORE_NTT]
     if idle:
         raise AssertionError(f"kernels never launched on the mesh path: {idle}")
     return launches
@@ -1269,7 +1451,9 @@ def phase_recursive(key: str, rec_vk_path: str):
           "device_idle_share": 1 - busy / wall, "by_kernel": by_kernel})
     if not all(checks.values()):
         raise AssertionError(f"the two-proof aggregate at 2^{PAIR_LOG2} fails: {checks}")
-    idle = [k for k, v in launches.items() if v == 0]
+    # on the card the tensor cores take every transform of 512 points or
+    # more: the butterflies, left with the smaller ones, may idle
+    idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES]
     if idle:
         raise AssertionError(f"kernels never launched on the recursive path: {idle}")
     return launches, agg
@@ -1279,8 +1463,9 @@ def phase_split_ntt() -> None:
     """The 2^24-point coset LDE of one random 2^22-point vector, its coset
     iNTT, and the 2^24-point coset NTT of that LDE, through TorchBackend's
     split transforms (the path of a 2^22 domain) and through the monolithic
-    ones (SPLIT_NTT_MIN raised in this process): equal bit for bit, and the
-    iNTT gives the vector back."""
+    ones (SPLIT_NTT_MIN raised in this process), under each NTT engine:
+    equal bit for bit, the iNTT gives the vector back, and the engines'
+    results are equal."""
     import torch
     from plonkit_tpu_torch import backend_torch
     from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
@@ -1291,30 +1476,89 @@ def phase_split_ntt() -> None:
         raise AssertionError("a 2^22 domain no longer reaches the split transforms")
     b = TorchBackend(DEVICE)
     v = FrVec(to_tensor(_random_fr_rows(np.random.default_rng(SEED + 3), n, 0), DEVICE))
-    lde, ms = {}, {}
-    for route, threshold in (("split", backend_torch.SPLIT_NTT_MIN), ("monolithic", 1 << 62)):
-        saved, backend_torch.SPLIT_NTT_MIN = backend_torch.SPLIT_NTT_MIN, threshold
-        try:       # each timed after one untimed call (the tables of its size)
-            b.coset_lde(v, SPLIT_FACTOR)
-            lde[route], ms[f"coset_lde {route}"] = _timed_once(
-                lambda: b.coset_lde(v, SPLIT_FACTOR))
-            b.coset_intt(lde["split"])
-            lde[f"{route} intt"], ms[f"coset_intt {route}"] = _timed_once(
-                lambda: b.coset_intt(lde["split"]))
-            b.coset_ntt(lde["split"])
-            lde[f"{route} ntt"], ms[f"coset_ntt {route}"] = _timed_once(
-                lambda: b.coset_ntt(lde["split"]))
-        finally:
-            backend_torch.SPLIT_NTT_MIN = saved
-    back = lde["split intt"].data
-    same = {"coset_lde": torch.equal(lde["split"].data, lde["monolithic"].data),
+    same, ms, split = {}, {}, {}
+    for engine in ("auto", "pease"):
+        lde, ms[engine] = {}, {}
+        with _ntt_engine(engine):
+            for route, threshold in (("split", backend_torch.SPLIT_NTT_MIN),
+                                     ("monolithic", 1 << 62)):
+                saved, backend_torch.SPLIT_NTT_MIN = backend_torch.SPLIT_NTT_MIN, threshold
+                try:       # each timed after one untimed call (the tables of its size)
+                    b.coset_lde(v, SPLIT_FACTOR)
+                    lde[route], ms[engine][f"coset_lde {route}"] = _timed_once(
+                        lambda: b.coset_lde(v, SPLIT_FACTOR))
+                    b.coset_intt(lde["split"])
+                    lde[f"{route} intt"], ms[engine][f"coset_intt {route}"] = _timed_once(
+                        lambda: b.coset_intt(lde["split"]))
+                    b.coset_ntt(lde["split"])
+                    lde[f"{route} ntt"], ms[engine][f"coset_ntt {route}"] = _timed_once(
+                        lambda: b.coset_ntt(lde["split"]))
+                finally:
+                    backend_torch.SPLIT_NTT_MIN = saved
+        back = lde["split intt"].data
+        same[engine] = {
+            "coset_lde": torch.equal(lde["split"].data, lde["monolithic"].data),
             "coset_intt": torch.equal(back, lde["monolithic intt"].data),
             "coset_ntt": torch.equal(lde["split ntt"].data, lde["monolithic ntt"].data),
             "round_trip": torch.equal(back[:n], v.data) and not bool(back[n:].any())}
+        split[engine] = [lde[k].data for k in ("split", "split intt", "split ntt")]
+        del lde, back
+        torch.cuda.empty_cache()
+    same["engines agree"] = {"split " + op: torch.equal(x, y) for op, x, y in
+                             zip(("coset_lde", "coset_intt", "coset_ntt"), *split.values())}
     emit({"phase": "split_ntt", "points": n, "lde_points": n * SPLIT_FACTOR, "identical": same,
           "ms": ms, "seconds": round(time.perf_counter() - t_all, 3)})
-    if not all(same.values()):
+    if not all(ok for checks in same.values() for ok in checks.values()):
         raise AssertionError(f"split and monolithic coset transforms differ: {same}")
+
+
+def phase_ntt_engines() -> None:
+    """Both NTT engines on the card on the same random canonical vectors:
+    ntt and intt at 2^20, the coset LDE x4 of a 2^20 vector, coset_ntt and
+    coset_intt at 2^22, a monolithic 2^24 coset_ntt, and ntt at the
+    smaller sizes SWEEP_NTT_LOG2 (where auto's threshold of 512 points
+    lies).  Each transform is warmed once (its tables), then run once with
+    the launches counted and timed over more calls (CUDA events: 3 from
+    2^20 on, 20 below).  The engines must agree bit for bit, and each
+    inverse must give its vector back."""
+    import torch
+    from plonkit_tpu_torch.gpu import ntt as gntt, ntt_mxu as gmxu
+    from plonkit_tpu_torch.gpu.mont import to_tensor
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(SEED + 6)
+    a, b, c = MAIN_LOG2, PAIR_LOG2, PAIR_LOG2 + 2      # 2^20, 2^22, 2^24
+    v = {k: to_tensor(_random_fr_rows(rng, 1 << k, 0), DEVICE)
+         for k in (a, b, c) + SWEEP_NTT_LOG2}
+    engines = {"pease": lambda op: getattr(gntt, op),
+               "mxu": lambda op: getattr(gmxu, op + "_mxu")}
+    out, report = {}, {}
+    for engine, fn in engines.items():
+        res = out[engine] = {}
+        cases = ((f"ntt 2^{a}", lambda: fn("ntt")(v[a])),
+                 (f"intt 2^{a}", lambda: fn("intt")(res[f"ntt 2^{a}"])),
+                 (f"coset_lde x4 of 2^{a}", lambda: fn("coset_lde")(v[a], 4)),
+                 (f"coset_ntt 2^{b}", lambda: fn("coset_ntt")(v[b])),
+                 (f"coset_intt 2^{b}", lambda: fn("coset_intt")(res[f"coset_ntt 2^{b}"])),
+                 (f"coset_ntt 2^{c}", lambda: fn("coset_ntt")(v[c])))
+        small = tuple((f"ntt 2^{k}", lambda k=k: fn("ntt")(v[k])) for k in SWEEP_NTT_LOG2)
+        for label, call in cases + small:
+            call()
+            _reset_launches()
+            res[label], _ = _timed_once(call)
+            launched = {k: c for k, c in _launch_counts().items() if c}
+            reps = 20 if (label, call) in small else 3
+            report.setdefault(label, {})[engine] = {"ms": time_ms(call, reps),
+                                                    "launches": launched}
+        torch.cuda.empty_cache()
+    same = {label: torch.equal(out["pease"][label], out["mxu"][label]) for label in report}
+    back = {f"{e} {label}": torch.equal(out[e][label], v[k]) for e in engines
+            for label, k in ((f"intt 2^{a}", a), (f"coset_intt 2^{b}", b))}
+    faster = [label for label, r in report.items() if r["mxu"]["ms"] < r["pease"]["ms"]]
+    emit({"phase": "ntt_engines", "identical": same, "inverse_gives_the_vector": back,
+          "by_transform": report, "mxu_takes_less_time": faster,
+          "seconds": round(time.perf_counter() - t_all, 3)})
+    if not all(same.values()) or not all(back.values()):
+        raise AssertionError(f"the NTT engines disagree: {same}, round trips {back}")
 
 
 def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
@@ -1443,7 +1687,7 @@ def main() -> int:
         phase_msm(ctx, HostMSMContext.from_limbs(*handle.g1_limbs(1 << MAIN_LOG2)))
         del ctx
         phase_cross_check(tmp)
-        launches, circuit, vk_bytes, proof_bytes = phase_main(key)
+        launches, launches_pease, circuit, vk_bytes, proof_bytes = phase_main(key)
         torch.cuda.empty_cache()
         built = _build_snapshot()
         with ThreadPoolExecutor(3) as pool:     # phases 7, 8 and 9 at once
@@ -1461,6 +1705,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_split_ntt()
         torch.cuda.empty_cache()
+        phase_ntt_engines()
+        torch.cuda.empty_cache()
         pos_setup, pos_circuit, pos_vk, pos_proof = phase_poseidon(tmp, key)
         launches_mesh = phase_mesh(pos_setup, pos_circuit, pos_vk, pos_proof)
         del pos_setup, pos_circuit
@@ -1469,6 +1715,7 @@ def main() -> int:
         phase_contract(tmp, agg, rec_vk_path)
     for r in rows:
         r["launches"] = launches[r["name"]]
+        r["launches_pease_prove"] = launches_pease[r["name"]]
         r["launches_recursive"] = launches_recursive[r["name"]]
         r["launches_srs"] = launches_srs[r["name"]]
         r["launches_mesh"] = launches_mesh[r["name"]]

@@ -11,6 +11,9 @@ _quotient_column_jit, _perm_grand_product_jit, the scans) become sequences
 of launches: each add(x, mul(a, b)) they compose from pk.mul/pk.add is one
 K4 mul_add(a, b, x) here, the rest K1/K2; fusing longer chains is later
 work.
+Transforms take the NTT engine that PLONKIT_TPU_NTT names, as in
+backend_jax: the tensor-core engine (gpu/ntt_mxu.py, K9-K11) or the Pease
+butterflies (gpu/ntt.py, K3/K5).
 Commitments of a backend on the card run on the card at every size
 (gpu/msm.py over the MSM kernels K6-K8); a backend on the CPU commits in
 the host Pippenger (backend.HostMSMContext), as backend_jax does on a CPU.
@@ -18,6 +21,7 @@ backend_jax's switch to the host at or below 4096 points is not taken
 over: no crossover has been measured on the card.
 """
 
+import os
 from typing import List, Sequence
 
 import numpy as np
@@ -25,7 +29,7 @@ import torch
 
 from .backend import HostMSMContext
 from .fields import FR_GENERATOR, FR_MODULUS as R, fr_inv, get_domain_omega
-from .gpu import ec, field_kernels as fk, ntt as gntt
+from .gpu import ec, field_kernels as fk, ntt as gntt, ntt_mxu as gmxu
 from .gpu.mont import FQ, FR, NLIMBS, to_numpy, to_tensor
 from .gpu.msm import MSMContext
 from .profiling import stage
@@ -34,6 +38,32 @@ from .profiling import stage
 # n-point transforms (as backend_jax._SPLIT_NTT_MIN): 2^24 = the LDE of a
 # 2^22 domain.
 SPLIT_NTT_MIN = 1 << 24
+
+# NTT engine selection, as backend_jax._NTT_ENGINE reads it: "auto" runs
+# the tensor-core engine for transforms of 512 points or more on the card
+# and the butterflies otherwise (on the CPU always); "mxu" and "pease" name
+# one engine for every transform.  Each engine launches its own kernels or
+# raises: the variable chooses, nothing falls back.  The variable and the
+# 512-point threshold are the JAX package's, kept for parity; the threshold
+# was not chosen from the H100's times (chip_smoke.py phase 15 times both
+# engines per size).
+_NTT_ENGINE = os.environ.get("PLONKIT_TPU_NTT", "auto")
+
+
+def _use_mxu_ntt(n: int, device: torch.device) -> bool:
+    if _NTT_ENGINE == "mxu":
+        return True
+    if _NTT_ENGINE == "pease":
+        return False
+    if _NTT_ENGINE != "auto":
+        raise ValueError(f"PLONKIT_TPU_NTT={_NTT_ENGINE!r}: expected auto, mxu or pease")
+    return n >= 512 and device.type == "cuda"
+
+
+def _engine(op: str, n: int, device: torch.device):
+    """The transform `op` (ntt, intt, coset_ntt, coset_intt, coset_lde) of
+    the engine that runs n points on `device`."""
+    return getattr(gmxu, op + "_mxu") if _use_mxu_ntt(n, device) else getattr(gntt, op)
 
 
 class FrVec:
@@ -120,25 +150,25 @@ class TorchBackend:
     # -- NTT -----------------------------------------------------------------
 
     def ntt(self, v: FrVec) -> FrVec:
-        return FrVec(gntt.ntt(v.data))
+        return FrVec(_engine("ntt", len(v), self.device)(v.data))
 
     def intt(self, v: FrVec) -> FrVec:
-        return FrVec(gntt.intt(v.data))
+        return FrVec(_engine("intt", len(v), self.device)(v.data))
 
     def coset_ntt(self, v: FrVec, shift: int = FR_GENERATOR) -> FrVec:
         if len(v) >= SPLIT_NTT_MIN and len(v) % 4 == 0:
             return self._coset_ntt_split(v, 4, shift)
-        return FrVec(gntt.coset_ntt(v.data, shift))
+        return FrVec(_engine("coset_ntt", len(v), self.device)(v.data, shift))
 
     def coset_intt(self, v: FrVec, shift: int = FR_GENERATOR) -> FrVec:
         if len(v) >= SPLIT_NTT_MIN and len(v) % 4 == 0:
             return self._coset_intt_split(v, 4, shift)
-        return FrVec(gntt.coset_intt(v.data, shift))
+        return FrVec(_engine("coset_intt", len(v), self.device)(v.data, shift))
 
     def coset_lde(self, v: FrVec, factor: int, shift: int = FR_GENERATOR) -> FrVec:
         if len(v) * factor >= SPLIT_NTT_MIN:
             return self._coset_lde_split(v, factor, shift)
-        return FrVec(gntt.coset_lde(v.data, factor, shift))
+        return FrVec(_engine("coset_lde", len(v) * factor, self.device)(v.data, factor, shift))
 
     # -- split (workspace-bounded) large coset transforms --------------------
     # As backend_jax: LDE[F*t + j] = coset_ntt_n(p, g*eta^j)[t] with
@@ -147,7 +177,10 @@ class TorchBackend:
     # The coset NTT of a length-N vector v folds its F blocks of m = N/F
     # first: X[F*t + j] = coset_ntt_m(u_j, g*eta^j)[t] with eta = omega_N
     # and u_j = sum_q (g*eta^j)^(m*q) * v[q*m:(q+1)*m] (backend_jax's
-    # coset_ntt has no split path).
+    # coset_ntt has no split path).  The parts take the selected engine, as
+    # backend_jax's call self.coset_ntt / self.coset_intt; here through
+    # `_engine`, since MeshBackend's overrides take a shard, not a whole
+    # vector.
 
     def _coset_ntt_split(self, v: FrVec, factor: int, shift: int) -> FrVec:
         total = len(v)
@@ -161,15 +194,15 @@ class TorchBackend:
             u = blocks[0]
             for q in range(1, factor):
                 u = self._mul_add(blocks[q], self._const(pow(s_m, q, R), m), u)
-            parts.append(gntt.coset_ntt(u, s))
+            parts.append(_engine("coset_ntt", m, self.device)(u, s))
         # [m, F, 8] -> [F*m, 8] puts part j at rows F*t + j
         return FrVec(torch.stack(parts, dim=1).reshape(total, NLIMBS))
 
     def _coset_lde_split(self, v: FrVec, factor: int, shift: int) -> FrVec:
         n = len(v)
         eta = get_domain_omega(factor * n)
-        parts = [gntt.coset_ntt(v.data, shift * pow(eta, j, R) % R)
-                 for j in range(factor)]
+        coset_ntt = _engine("coset_ntt", n, self.device)
+        parts = [coset_ntt(v.data, shift * pow(eta, j, R) % R) for j in range(factor)]
         # [n, F, 8] -> [F*n, 8] puts part j at rows F*t + j
         return FrVec(torch.stack(parts, dim=1).reshape(factor * n, NLIMBS))
 
@@ -180,8 +213,8 @@ class TorchBackend:
         u_inv = fr_inv(pow(eta, n, R))
         g_n_inv = fr_inv(pow(shift, n, R))
         f_inv = fr_inv(factor)
-        cs = [FrVec(gntt.coset_intt(v.data[j::factor].contiguous(),
-                                    shift * pow(eta, j, R) % R))
+        coset_intt = _engine("coset_intt", n, self.device)
+        cs = [FrVec(coset_intt(v.data[j::factor].contiguous(), shift * pow(eta, j, R) % R))
               for j in range(factor)]
         chunks = []
         for m in range(factor):

@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-SOURCES = ("field", "ntt", "msm")
+SOURCES = ("field", "ntt", "msm", "ntt_mxu")
 _HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,6 +43,9 @@ _ARGTYPES = {
             "plonkit_window_sums": [_P] * 18 + [ctypes.c_longlong, ctypes.c_longlong,
                                                 ctypes.c_int, ctypes.c_int, _P],
             "plonkit_combine": [_P] * 3 + [ctypes.c_int] * 3 + [_P] * 4},
+    "ntt_mxu": {"plonkit_balanced_digits": [_P, _P] + [ctypes.c_longlong] * 3 + [_P],
+                "plonkit_dft_product": [_P] * 3 + [ctypes.c_longlong] * 3 + [_P],
+                "plonkit_fold_redc": [_P, _P] + [ctypes.c_longlong] * 2 + [_P]},
 }
 
 _libs = {}

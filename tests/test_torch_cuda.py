@@ -19,7 +19,7 @@ import torch
 from plonkit_tpu_torch.backend import HostMSMContext
 from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
 from plonkit_tpu_torch.gpu import ec, field_kernels as fk
-from plonkit_tpu_torch.gpu import mont, msm_kernels as mk, ntt
+from plonkit_tpu_torch.gpu import mont, msm_kernels as mk, ntt, ntt_mxu
 from plonkit_tpu_torch.gpu.msm import WINDOW_CHUNK, MSMContext
 from plonkit_tpu_torch.srs import dev_srs_g1
 
@@ -383,3 +383,45 @@ def test_extended_backend_methods_match_cpu(card, method):
     if method == "fma_acc":
         assert fk.launches["mul_add"] == before["mul_add"] + 1
     assert torch.equal(got.data.cpu(), run(cpu, "cpu").data)
+
+
+@pytest.mark.parametrize("r,batch", [(16, 32), (128, 8192), (8, 3)])
+def test_ntt_mxu_kernels_match_plain(card, r, batch):
+    """K9, K10 and K11 at one level of the tensor-core NTT (the radix-16
+    level of 512 points, with K padded to 544; the radix-128 level of 2^20
+    points; a radix-8 transform of 3 columns, ragged in M and N) against
+    their plain versions on the card, and the level's fold against the
+    transform by the butterflies."""
+    x = rand_rows(mont.FR, r * batch, 30 + r).to(card).view(r, batch, 8)
+    before = dict(ntt_mxu.launches)
+    digits = ntt_mxu.balanced_digits(x)
+    assert torch.equal(digits, ntt_mxu.balanced_digits_plain(x))
+    table = ntt_mxu._dft_table(r, False, str(card))
+    assert torch.equal(table, ntt_mxu._dft_table(r, False, "cpu").to(card))
+    g = ntt_mxu.dft_product(table, digits)
+    assert torch.equal(g, ntt_mxu.dft_product_plain(table, digits))
+    y = ntt_mxu.fold_redc(g)
+    assert torch.equal(y, ntt_mxu.fold_redc_plain(g))
+    assert torch.equal(y, ntt.ntt_batched(x))
+    assert all(ntt_mxu.launches[k] > before[k] for k in before)
+
+
+def test_dft_product_one_tile_matches_plain(card):
+    """K10 on one m16n8k32 tile: the mma.sync fragment layout."""
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randint(-128, 128, (16, 32), generator=gen, dtype=torch.int8)
+    x = torch.randint(-128, 128, (8, 32), generator=gen, dtype=torch.int8)
+    g = ntt_mxu.dft_product(a.to(card), x.to(card))
+    assert torch.equal(g.cpu(), ntt_mxu.dft_product_plain(a, x))
+
+
+@pytest.mark.parametrize("log_n", [9, 12, 16])
+def test_ntt_mxu_transforms_match_butterflies(card, log_n):
+    n = 1 << log_n
+    x = rand_rows(mont.FR, n, 40 + log_n).to(card)
+    c = x[:n // 4].contiguous()
+    assert torch.equal(ntt_mxu.ntt_mxu(x), ntt.ntt(x))
+    assert torch.equal(ntt_mxu.intt_mxu(x), ntt.intt(x))
+    assert torch.equal(ntt_mxu.coset_ntt_mxu(x), ntt.coset_ntt(x))
+    assert torch.equal(ntt_mxu.coset_intt_mxu(x), ntt.coset_intt(x))
+    assert torch.equal(ntt_mxu.coset_lde_mxu(c, 4), ntt.coset_lde(c, 4))
