@@ -8,9 +8,12 @@ Phases, each printing a JSON line with its wall seconds:
 1. build: the CUDA kernels (csrc/*.cu, one nvcc per source, all at once) and
    the native host library (native/bn254.cpp), with each kernel's
    registers, shared memory, stack and spills from ptxas and the
-   instructions of K1 (one Montgomery product), K6 and K8 from the CUDA
-   toolkit's cuobjdump, then the card's name and power limit as nvidia-smi
-   reports them;
+   instructions of K1 (one Montgomery product), K6, K8, K9 and K10 from the
+   CUDA toolkit's cuobjdump: K10's int8 warpgroup MMAs (IGMMA), TMA loads
+   (UTMALDG) and mma.sync (IMMA), and K9's global stores by width; the
+   phase fails unless K10 has IGMMA and UTMALDG and no IMMA, and every
+   store of K9 is 16 bytes wide.  Then the card's name and power limit as
+   nvidia-smi reports them;
 2. srs: the tau = 42 dev SRS of 2^22 points, made on the card by the CLI's
    `setup -p 22` (gpu/fixed_base.py: 32 K7 launches for the windowed
    ladder, K1 for the tau powers and the inversion of Z), run in this
@@ -40,7 +43,10 @@ Phases, each printing a JSON line with its wall seconds:
    columns), K10 timed beside torch._int_mm on the same operands (the
    yardstick; the port never calls it) and also held at the radix-256
    level of 2^22 points (the 71 MB table), at radix 16 (depth padded from
-   528 to 544) and on one m16n8k32 tile; and field_kernels.batch_inverse
+   528 to 544), on a 16 x 8 x 32 product and at every radix 2-256 with N =
+   1 and N = 37 (ragged tiles); K9 also at r = 1 with the 256^2 * 33
+   columns of the radix-256 table build and at ragged batches; and
+   field_kernels.batch_inverse
    (a composition over K1) at 2^20: its time, K1 launches and bound;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
@@ -283,9 +289,17 @@ def phase_build() -> None:
     for name, rec in log.items():
         emit({"build": name, "nvcc_s": round(rec["seconds"], 3),
               "ptxas": ptxas_by_kernel(rec["ptxas"])})
+    mxu = sass_counts(build.library_path("ntt_mxu"), {"dft_product_kernel",
+                                                      "balanced_digits_kernel"})
     emit({"build": "sass", "field": sass_counts(build.library_path("field"), {"mul_kernel"}),
           "msm": sass_counts(build.library_path("msm"), {"bucket_sweep_kernel",
-                                                         "combine_kernel"})})
+                                                         "combine_kernel"}),
+          "ntt_mxu": mxu})
+    k10, k9 = mxu["dft_product_kernel"], mxu["balanced_digits_kernel"]
+    if not k10["igmma"] or not k10["utmaldg"] or k10["imma"]:
+        raise AssertionError(f"K10 is not on wgmma fed by TMA: {k10}")
+    if not k9["stg_16_bytes"] or k9["stg_narrower"]:
+        raise AssertionError(f"K9 stores narrower than 16 bytes: {k9}")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": [os.path.basename(build.library_path(n)) for n in build.SOURCES],
           "native": os.path.basename(native.library_path())})
@@ -318,7 +332,9 @@ def ptxas_by_kernel(report: str) -> dict:
 
 def sass_counts(lib: str, kernels) -> dict:
     """Instructions of the named kernels in a built library (cuobjdump
-    -sass), in all and of the IMAD family."""
+    -sass): in all, of the IMAD family, int8 warpgroup MMAs (IGMMA),
+    mma.sync on integers (IMMA), TMA loads (UTMALDG), and global stores 16
+    bytes wide and narrower."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     dump = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
@@ -329,8 +345,14 @@ def sass_counts(lib: str, kernels) -> dict:
             continue
         ops = re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sec,
                          re.M)
+        stores = [op for op in ops if op.startswith("STG")]
         out[short.group(1)] = {"instructions": len(ops),
-                               "imad": sum(op.startswith("IMAD") for op in ops)}
+                               "imad": sum(op.startswith("IMAD") for op in ops),
+                               "igmma": sum(op.startswith("IGMMA") for op in ops),
+                               "imma": sum(op.startswith("IMMA") for op in ops),
+                               "utmaldg": sum(op.startswith("UTMALDG") for op in ops),
+                               "stg_16_bytes": sum(op.endswith(".128") for op in stores),
+                               "stg_narrower": sum(not op.endswith(".128") for op in stores)}
     if set(out) != set(kernels):
         raise AssertionError(f"cuobjdump -sass {lib}: found {sorted(out)} of {sorted(kernels)}")
     return out
@@ -705,14 +727,17 @@ def _ntt_mxu_rows() -> list:
     card, at the radix-128 level of a 2^20-point transform: 2^20 random
     canonical rows as [128, 8192, 8], the forward table, and the level's
     digits and product.  K10 also at the radix-256 level of 2^22 points,
-    at radix 16 (the padded depth) and on one m16n8k32 tile."""
+    at radix 16 (the padded depth), on a 16 x 8 x 32 product and at every
+    radix with N = 1 and N = 37; K9 also at r = 1 with the columns of the
+    radix-256 table build and at ragged batches."""
     import torch
     from plonkit_tpu_torch.gpu import ntt_mxu as gmxu
     from plonkit_tpu_torch.gpu.mont import to_tensor
     rng = np.random.default_rng(SEED + 4)
 
     def level(r, batch):
-        x = to_tensor(_random_fr_rows(rng, r * batch, 0), DEVICE).view(r, batch, 8)
+        planted = 0 if r * batch >= 4 else None
+        x = to_tensor(_random_fr_rows(rng, r * batch, planted), DEVICE).view(r, batch, 8)
         table = gmxu._dft_table(r, False, DEVICE)
         digits = gmxu.balanced_digits(x)
         return x, table, digits, gmxu.dft_product(table, digits)
@@ -724,9 +749,18 @@ def _ntt_mxu_rows() -> list:
     r, batch = 128, (1 << MAIN_LOG2) // 128
     x, table, digits, g = level(r, batch)
     n, m, kp = r * batch, table.shape[0], table.shape[1]
+    k9_checks = {}
+    for label, (rr, bb) in {"r = 1, the radix-256 table build": (1, 256 * 256 * gmxu.NB),
+                            "radix 256, 37 columns": (256, 37),
+                            "radix 64, 3 columns": (64, 3)}.items():
+        xx = to_tensor(_random_fr_rows(rng, rr * bb, 0), DEVICE).view(rr, bb, 8)
+        k9_checks[label] = {"shape": [rr, bb], "mismatches": _mismatches(
+            (gmxu.balanced_digits(xx),), (gmxu.balanced_digits_plain(xx),))}
+        del xx
     k9 = _row("K9 balanced_digits", lambda: gmxu.balanced_digits(x),
               lambda: gmxu.balanced_digits_plain(x), n, 32 * n + batch * kp, 0, 20,
-              radix=r, columns=batch)
+              radix=r, columns=batch, checks=k9_checks)
+    k9["mismatches"] += sum(c["mismatches"] for c in k9_checks.values())
     lib_mism = _mismatches((torch._int_mm(table, digits.t()),), (g,))
     checks = {}
     for label, (rr, bb) in {f"radix 256, 2^{PAIR_LOG2} points": (256, (1 << PAIR_LOG2) // 256),
@@ -735,11 +769,16 @@ def _ntt_mxu_rows() -> list:
         checks[label] = {"shape": [t.shape[0], bb, t.shape[1]],
                          "mismatches": product_mismatches(t, d)}
         del t, d
+    for rr in (2, 4, 8, 16, 32, 64, 128, 256):
+        for bb in (1, 37):
+            _, t, d, _ = level(rr, bb)
+            checks[f"radix {rr}, N = {bb}"] = {"shape": [t.shape[0], bb, t.shape[1]],
+                                               "mismatches": product_mismatches(t, d)}
     gen = torch.Generator().manual_seed(SEED)
     tile_a = torch.randint(-128, 128, (16, 32), generator=gen, dtype=torch.int8).to(DEVICE)
     tile_x = torch.randint(-128, 128, (8, 32), generator=gen, dtype=torch.int8).to(DEVICE)
-    checks["one m16n8k32 tile"] = {"shape": [16, 8, 32],
-                                   "mismatches": product_mismatches(tile_a, tile_x)}
+    checks["16 x 8 x 32"] = {"shape": [16, 8, 32],
+                             "mismatches": product_mismatches(tile_a, tile_x)}
     k10 = _row("K10 dft_product", lambda: gmxu.dft_product(table, digits),
                lambda: gmxu.dft_product_plain(table, digits), m * batch,
                m * kp + batch * kp + 4 * m * batch, 0, 20, warm_plain=False,
@@ -1649,7 +1688,7 @@ def profile_prove(setup, circuit, vk) -> None:
           "by_kernel": by_kernel})
 
 
-def device_activity(prof, top: int = 16):
+def device_activity(prof, top: int = 24):
     """A torch.profiler run's device events, their busy seconds (the union
     of their intervals) and the `top` kernel names by device time."""
     import torch

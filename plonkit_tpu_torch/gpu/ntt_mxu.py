@@ -15,7 +15,7 @@ sum_t G_t 2^(8t) = (W X) 2^48 (mod p) and |G_t| <= r * 33 * 128^2 < 2^28.
 A fold then adds 2^31 p, ripples the carries into 36 clean bytes and runs
 a Montgomery REDC by 2^48, which cancels the 2^48 and leaves the canonical
 Montgomery rows of W X.  The three steps are K9 balanced_digits
-(`_to_balanced`), K10 dft_product (the `dot_general`, on mma.sync int8)
+(`_to_balanced`), K10 dft_product (the `dot_general`, on int8 wgmma fed by TMA)
 and K11 fold_redc (`_fold_redc`).
 
 Transforms of m = N1 * N2 points run the 4-step recursion of the JAX
@@ -48,7 +48,7 @@ PREMUL = 1 << (16 * REDC_LIMBS)
 OFFSET_C = 1 << 31         # V + OFFSET_C*p >= 0 for any balanced-digit V
 FOLD_BYTES = 36            # byte positions of OFFSET_C*p (2^285 < 2^288)
 MAX_RADIX_LOG2 = 8         # keep A tables <= [8448, 8448] int8 (71 MB)
-K_STEP = 32                # depth of one mma.sync m16n8k32: K is padded to it
+K_STEP = 32                # depth of one wgmma k-step: K is padded to it
 
 _OFF_BYTES = [((OFFSET_C * P) >> (8 * t)) & 0xFF for t in range(FOLD_BYTES)]
 assert (OFFSET_C * P) >> (8 * FOLD_BYTES) == 0
@@ -131,8 +131,11 @@ def balanced_digits(x: torch.Tensor) -> torch.Tensor:
 
 def dft_product_plain(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The plain version of K10, in float64: every partial sum is an
-    integer below 2^31, so the product is exact in any order."""
-    return (a.to(torch.float64) @ x.to(torch.float64).T).to(torch.int32)
+    integer below 2^31, so the product is exact in any order.  A is
+    converted 1024 rows at a time (the radix-256 table is 571 MB in
+    float64)."""
+    xt = x.to(torch.float64).T
+    return torch.cat([(rows.to(torch.float64) @ xt).to(torch.int32) for rows in a.split(1024)])
 
 
 def dft_product(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

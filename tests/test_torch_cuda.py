@@ -385,14 +385,17 @@ def test_extended_backend_methods_match_cpu(card, method):
     assert torch.equal(got.data.cpu(), run(cpu, "cpu").data)
 
 
-@pytest.mark.parametrize("r,batch", [(16, 32), (128, 8192), (8, 3)])
+@pytest.mark.parametrize("r,batch", [(16, 32), (128, 8192), (8, 3), (2, 1), (64, 16384),
+                                     (256, 37)] + [(r, 1) for r in (4, 8, 16, 32, 64, 128, 256)])
 def test_ntt_mxu_kernels_match_plain(card, r, batch):
     """K9, K10 and K11 at one level of the tensor-core NTT (the radix-16
     level of 512 points, with K padded to 544; the radix-128 level of 2^20
-    points; a radix-8 transform of 3 columns, ragged in M and N) against
-    their plain versions on the card, and the level's fold against the
-    transform by the butterflies."""
-    x = rand_rows(mont.FR, r * batch, 30 + r).to(card).view(r, batch, 8)
+    points; a radix-8 transform of 3 columns, ragged in M and N; the
+    radix-64 level of 2^20 points; radix 256 at a ragged N; every radix at
+    N = 1, one column of a 128 x 256 tile) against their plain versions on
+    the card, and the level's fold against the transform by the
+    butterflies."""
+    x = rand_rows(mont.FR, r * batch, 30 + r)[:r * batch].to(card).view(r, batch, 8)
     before = dict(ntt_mxu.launches)
     digits = ntt_mxu.balanced_digits(x)
     assert torch.equal(digits, ntt_mxu.balanced_digits_plain(x))
@@ -406,8 +409,19 @@ def test_ntt_mxu_kernels_match_plain(card, r, batch):
     assert all(ntt_mxu.launches[k] > before[k] for k in before)
 
 
+def test_balanced_digits_table_build_matches_plain(card):
+    """K9 at r = 1 with the column count of the radix-256 table build
+    (256^2 * 33 elements, _dft_table's call), 512 columns a block."""
+    rng = np.random.default_rng(31)
+    rows = rng.integers(0, 1 << 32, size=(256 * 256 * 33, 8), dtype=np.uint64).astype(np.uint32)
+    rows[:, 7] %= np.uint32(mont.FR.p32[7])
+    x = mont.to_tensor(rows, card).view(1, -1, 8)
+    assert torch.equal(ntt_mxu.balanced_digits(x), ntt_mxu.balanced_digits_plain(x))
+
+
 def test_dft_product_one_tile_matches_plain(card):
-    """K10 on one m16n8k32 tile: the mma.sync fragment layout."""
+    """K10 on a 16 x 8 x 32 product: one corner of a 128 x 256 tile, the
+    rest of its TMA boxes zero-filled."""
     gen = torch.Generator().manual_seed(5)
     a = torch.randint(-128, 128, (16, 32), generator=gen, dtype=torch.int8)
     x = torch.randint(-128, 128, (8, 32), generator=gen, dtype=torch.int8)

@@ -159,6 +159,39 @@ def test_product_plain_is_exact():
     assert int(g[0, 0]) == k * 128 * 128 and int(g[0, 1]) == -k * 128 * 127
 
 
+@pytest.mark.parametrize("n", [1, 3, 37])
+@pytest.mark.parametrize("r", [2, 4, 8, 16, 32, 64, 128, 256])
+def test_product_plain_every_radix(r, n):
+    """K10's plain version, the smoke's yardstick for the kernel, at every
+    radix's operand shape (M = r * 33, K = padded_depth(r)) and a ragged N,
+    against numpy's exact int64 product of the same seeded int8 operands."""
+    rng = np.random.default_rng(1000 * r + n)
+    m, k = r * 33, mxu.padded_depth(r)
+    a = rng.integers(-128, 128, size=(m, k), dtype=np.int8)
+    x = rng.integers(-128, 128, size=(n, k), dtype=np.int8)
+    got = mxu.dft_product(torch.from_numpy(a), torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    xt = x.astype(np.int64).T
+    want = np.concatenate([rows.astype(np.int64) @ xt
+                           for rows in np.array_split(a, range(1024, m, 1024))])
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("r,batch", [(1, 16 * 16 * 33), (1, 5), (2, 1), (8, 3), (64, 37),
+                                     (256, 3)])
+def test_digits_plain_at_kernel_shapes(r, batch):
+    """K9's plain version against _to_balanced where K9's blocks take other
+    shapes: r = 1 with the column count of a table build (_dft_table's r^2 *
+    33 elements, here r = 16) and ragged batches; every row's padding zero."""
+    rows = port_rows(rand_elems(r * batch, 90 + r + batch)).view(r, batch, 8)
+    got = mxu.balanced_digits(rows)
+    want = np.asarray(ref_mxu._to_balanced(jnp.asarray(planar(rows.view(-1, 8)))))  # [33, r*B]
+    want = want.reshape(33, r, batch).transpose(2, 1, 0).reshape(batch, r * 33)
+    assert got.shape == (batch, mxu.padded_depth(r))
+    assert np.array_equal(got[:, :r * 33].numpy(), want)
+    assert not got[:, r * 33:].any()
+
+
 def _ref_transforms(xs, coeffs):
     x = jnp.asarray(REF_FR.to_mont_np(xs))
     c = jnp.asarray(REF_FR.to_mont_np(coeffs))
