@@ -12,12 +12,14 @@ Phases, each printing a JSON line with its wall seconds:
    CUDA toolkit's cuobjdump: K10's int8 warpgroup MMAs (IGMMA), TMA loads
    (UTMALDG) and mma.sync (IMMA), and K9's global stores by width; the
    phase fails unless K10 has IGMMA and UTMALDG and no IMMA, and every
-   store of K9 is 16 bytes wide.  Then the card's name and power limit as
-   nvidia-smi reports them;
+   store of K9 is 16 bytes wide, and unless K12's and K13's kernels
+   (csrc/scan.cu) build without a spill.  Then the card's name and power
+   limit as nvidia-smi reports them;
 2. srs: the tau = 42 dev SRS of 2^22 points, made on the card by the CLI's
    `setup -p 22` (gpu/fixed_base.py: 32 K7 launches for the windowed
-   ladder, K1 for the tau powers and the inversion of Z), run in this
-   process so that its launches can be counted; the key's first 2^12
+   ladder, K1 for the tau powers, the inversion of Z by K12 and K13), run
+   in this process so that its launches can be counted (K7, K1, K12 and K13
+   must launch); the key's first 2^12
    points must be byte-equal to srs.py's (serial python), and its G2 pair
    to [G2, 42 G2].  The 2^20 and 2^21 phases read prefixes of this key;
 3. kernels: every kernel on the card against its plain PyTorch version on
@@ -45,9 +47,20 @@ Phases, each printing a JSON line with its wall seconds:
    level of 2^22 points (the 71 MB table), at radix 16 (depth padded from
    528 to 544), on a 16 x 8 x 32 product and at every radix 2-256 with N =
    1 and N = 37 (ragged tiles); K9 also at r = 1 with the 256^2 * 33
-   columns of the radix-256 table build and at ragged batches; and
-   field_kernels.batch_inverse
-   (a composition over K1) at 2^20: its time, K1 launches and bound;
+   columns of the radix-256 table build and at ragged batches; K12
+   field_scan at the main path's shapes (the grand product's Fr exclusive
+   prefix product at 2^20, timed; divide_by_linear's Fr exclusive suffix
+   sum at 2^20; an SRS part's Fq prefix product at 2^22) and in every form
+   over both fields at ragged n (1 to 3 tiles and a few rows), zeros at the
+   first and last rows; K13 field_inverse on the total of a 2^20 product
+   (with its steps) and on edge and random rows; and
+   field_kernels.batch_inverse (two K12 launches and one K13) at 2^20: its
+   time, launches, bound and mismatches against batch_inverse_plain (also
+   at ragged n with zeros at the first row, the last, every third and
+   everywhere, Fr and Fq), x * x^-1 = 1, and no device-to-host copy in
+   torch.profiler's record of one batch_inverse and one grand_product
+   call.  Times are CUDA events after a sleep kernel that holds the card
+   while the host queues the calls;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
@@ -210,6 +223,7 @@ DEVICE = "cuda"
 # FMA), so 67e12 / 4.
 HBM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 67e12 / 4
+PRE_ROLL_CYCLES = 20_000_000               # ~10 ms of sleep kernel ahead of a timing
 
 # 32-bit multiply instructions of one Montgomery product: 64 + 64 wide
 # products of 2 instructions each, plus 8 for m = t0 * n0
@@ -241,7 +255,13 @@ SOURCES = {
                            "plonkit_tpu/tpu/ntt_mxu.py:156"),
     "K10 dft_product": ("plonkit_tpu_torch/csrc/ntt_mxu.cu", "plonkit_tpu/tpu/ntt_mxu.py:212"),
     "K11 fold_redc": ("plonkit_tpu_torch/csrc/ntt_mxu.cu", "plonkit_tpu/tpu/ntt_mxu.py:172"),
+    # the Hillis-Steele scans over pk.mul / pk.add (backend_jax.py:145
+    # prefix products, :167 suffix products, :314 suffix sums, and those of
+    # pallas_kernels.py:173 batch_inverse); the Fermat inverse of the total
+    "K12 field_scan": ("plonkit_tpu_torch/csrc/scan.cu", "plonkit_tpu/backend_jax.py:145"),
+    "K13 field_inverse": ("plonkit_tpu_torch/csrc/scan.cu", "plonkit_tpu/tpu/mont.py:298"),
 }
+SCAN_KERNELS = ("field_scan_mul_kernel", "field_scan_add_kernel", "field_inverse_kernel")
 BUTTERFLIES = ("K3 butterfly_dif", "K5 butterfly")
 TENSOR_CORE_NTT = ("K9 balanced_digits", "K10 dft_product", "K11 fold_redc")
 
@@ -263,12 +283,15 @@ def card_line() -> str:
 
 def time_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` back-to-back calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call).  A sleep kernel ahead of the start event holds
+    the card while the host queues the calls, so the host's launch overhead
+    does not count where it exceeds a call's device time."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(PRE_ROLL_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -295,6 +318,10 @@ def phase_build() -> None:
           "msm": sass_counts(build.library_path("msm"), {"bucket_sweep_kernel",
                                                          "combine_kernel"}),
           "ntt_mxu": mxu})
+    if "scan" in log:                   # built by this process (a fresh checkout)
+        scan = ptxas_by_kernel(log["scan"]["ptxas"])
+        if set(SCAN_KERNELS) - set(scan) or any(scan[k]["spill_bytes"] for k in SCAN_KERNELS):
+            raise AssertionError(f"K12/K13 ptxas: {scan}: a kernel is missing or spills")
     k10, k9 = mxu["dft_product_kernel"], mxu["balanced_digits_kernel"]
     if not k10["igmma"] or not k10["utmaldg"] or k10["imma"]:
         raise AssertionError(f"K10 is not on wgmma fed by TMA: {k10}")
@@ -412,8 +439,10 @@ def phase_srs(tmp: str) -> str:
           "serial_srs_py_s_for_compared_points": round(time.perf_counter() - t0, 3)})
     if not all(same.values()):
         raise AssertionError(f"device SRS differs from srs.py: {same}")
-    if not launches["K7 padd"] or not launches["K1 mul"]:
-        raise AssertionError(f"the device SRS missed K7 or K1: {launches}")
+    idle = [k for k in ("K7 padd", "K1 mul", "K12 field_scan", "K13 field_inverse")
+            if not launches[k]]
+    if idle:
+        raise AssertionError(f"the device SRS missed {idle}: {launches}")
     return key, launches
 
 
@@ -794,41 +823,166 @@ def _ntt_mxu_rows() -> list:
     return [k9, k10, k11]
 
 
+SCAN_RAGGED = (1, 2, 3, 4095, 4096, 4097, 3 * 4096 + 5)   # K12 tiles are 4096 rows
+ZERO_PATTERNS = ("first", "last", "thirds", "all")
+
+
+def _planted_zeros(rows: np.ndarray, pattern: str) -> np.ndarray:
+    """A copy of the rows with zeros at the first row, the last row, every
+    third row or everywhere."""
+    rows = rows.copy()
+    rows[{"first": slice(0, 1), "last": slice(-1, None), "thirds": slice(None, None, 3),
+          "all": slice(None)}[pattern]] = 0
+    return rows
+
+
+def _scan_rows() -> list:
+    """K12 and K13 on the card against their plain versions on the card.
+    K12 at the main path's shapes: the grand product (the Fr exclusive
+    prefix product at 2^20: the row's own numbers), divide_by_linear's
+    exclusive suffix sums (Fr, 2^20) and an SRS part's Fq prefix product
+    (2^22 rows, the 128 MB vectors; its plain version not timed); every
+    form (product or sum, prefix or suffix, inclusive or exclusive) over Fr
+    and Fq at ragged n, zeros at the first and last rows.  No PyTorch call
+    scans modulo p (library_ms null).  K13 on the total of a 2^20 product,
+    and on edge values and random rows over both fields."""
+    import torch
+    from plonkit_tpu_torch.gpu import field_kernels as fk, mont
+    from plonkit_tpu_torch.gpu.mont import FQ, FR, to_tensor
+    rng = np.random.default_rng(SEED + 9)
+    n = 1 << KERNEL_LOG2
+    x = to_tensor(_planted_zeros(_random_fr_rows(rng, n, 0), "last"), DEVICE)
+
+    def forms(spec, t, op, reverse, exclusive):
+        return (lambda: fk.scan(spec, t, op, reverse, exclusive),
+                lambda: fk.scan_plain(spec, t, op, reverse, exclusive))
+
+    def bound(rows, op):
+        bytes_s = 64 * rows / HBM_BYTES_PER_S
+        ops_s = (rows - 1) * MONT_MUL_OPS * (op == "mul") / INT32_MUL_PER_S
+        return {"bound_ms": max(bytes_s, ops_s) * 1e3,
+                "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+
+    variants = {}
+    kern, plain = forms(FR, x, "add", True, True)
+    got = kern()
+    want, plain_ms = _timed_once(plain)
+    variants["Fr exclusive suffix sum, 2^20 (divide_by_linear)"] = dict(
+        mismatches=_mismatches((got,), (want,)), ms=time_ms(kern, 20), plain_ms=plain_ms,
+        library_ms=None, **bound(n, "add"))
+    del got, want
+    xq = to_tensor(_random_fr_rows(rng, 1 << SRS_LOG2, 0), DEVICE)
+    kern, plain = forms(FQ, xq, "mul", False, False)
+    variants[f"Fq inclusive prefix product, 2^{SRS_LOG2} (an SRS part)"] = dict(
+        mismatches=_mismatches((kern(),), (plain(),)), ms=time_ms(kern, 5), plain_ms=None,
+        library_ms=None, **bound(1 << SRS_LOG2, "mul"))
+    del xq
+    ragged = {}
+    for spec in (FR, FQ):
+        for m in SCAN_RAGGED:
+            t = to_tensor(_planted_zeros(_planted_zeros(_random_fr_rows(rng, m), "first"),
+                                         "last"), DEVICE)
+            ragged[f"{'Fr' if spec is FR else 'Fq'} n = {m}"] = sum(
+                _mismatches((k(),), (p(),))
+                for op in ("mul", "add") for rev in (False, True) for exc in (False, True)
+                for k, p in [forms(spec, t, op, rev, exc)])
+    kern, plain = forms(FR, x, "mul", False, True)
+    k12 = _row("K12 field_scan", kern, plain, n, 64 * n, (n - 1) * MONT_MUL_OPS, 20,
+               shape="Fr exclusive prefix product, 2^20 (the grand product)",
+               variants=variants, ragged_mismatches=ragged,
+               note="a parallel scan does >= 2 products a row (this one 2.31); the bound "
+                    "counts the n - 1 of the serial scan")
+    k12["mismatches"] += sum(v["mismatches"] for v in variants.values()) + sum(ragged.values())
+
+    total = fk.scan(FR, x[4:-1].contiguous(), "mul")[-1:].contiguous()
+    steps = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    fk.inverse(FR, total, steps)
+    count, k = int(steps[0]) & 0xFFFF, int(steps[0]) >> 16
+    edge = {}
+    for spec in (FR, FQ):
+        t = torch.cat([to_tensor(spec.to_mont_np([0, 1, 2, spec.p - 1, spec.p - 2]), DEVICE),
+                       to_tensor(_random_fr_rows(rng, 59), DEVICE)])
+        edge["Fr" if spec is FR else "Fq"] = _mismatches((fk.inverse(spec, t),),
+                                                         (mont.inverse(spec, t),))
+    # the multiplies this input needs: the 2^-k fix-up's 32 x 256-bit
+    # products (17 instructions, 31 bits each) and the last Montgomery product
+    k13 = _row("K13 field_inverse", lambda: fk.inverse(FR, total),
+               lambda: mont.inverse(FR, total), 1, 64, MONT_MUL_OPS + 17 * -(-k // 31), 20,
+               warm_plain=False, steps=count, shifted_bits=k,
+               edge_and_random_mismatches=edge,
+               note="one thread: bound by the latency of its dependent steps, not by the "
+                    "bytes or operations counted here")
+    k13["mismatches"] += sum(edge.values())
+    return [k12, k13]
+
+
+def _dtoh_copies(fn) -> dict:
+    """Device-to-host copies and K12 launches torch.profiler records in
+    one call of fn."""
+    import torch
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    return {"dtoh": sum("DtoH" in nm for nm in names),
+            "k12_events": sum("field_scan" in nm for nm in names)}
+
+
 def _batch_inverse_record() -> dict:
     """gpu/field_kernels.batch_inverse over Fr at 2^20 (pallas_kernels.py:173
-    batch_inverse, a composition over K1, not a kernel): its ms (CUDA events
-    over 5 calls after a warm-up; each call reads one 32-byte total back),
-    its K1 launches a call, its bound, and the bytes bound of those
-    launches (three rows a full-width launch); checked by x * x^-1 = 1 on
-    the nonzero rows."""
+    batch_inverse): two K12 launches and one K13, no K1, nothing read back.
+    Its ms (CUDA events over 20 calls), launches a call and bound; the plain
+    version (batch_inverse_plain: Hillis-Steele scans of plain products, the
+    total inverted on the host) timed on the same input; mismatches
+    against it there (zeros at the first and last rows) and at ragged n
+    with zeros at the first row, the last, every third and everywhere (Fr
+    and Fq); x * x^-1 = 1 on the nonzero rows; and the device-to-host
+    copies torch.profiler records in one batch_inverse call and one
+    TorchBackend.grand_product call (none may happen)."""
     import torch
+    from plonkit_tpu_torch.backend_torch import FrVec, TorchBackend
     from plonkit_tpu_torch.gpu import field_kernels as fk
-    from plonkit_tpu_torch.gpu.mont import FR, to_tensor
+    from plonkit_tpu_torch.gpu.mont import FQ, FR, to_tensor
+    rng = np.random.default_rng(SEED + 7)
     n = 1 << KERNEL_LOG2
-    v = to_tensor(_random_fr_rows(np.random.default_rng(SEED + 7), n, 0), DEVICE)
+    v = to_tensor(_planted_zeros(_random_fr_rows(rng, n, 0), "last"), DEVICE)
     zero = (v == 0).all(dim=1)
-    before = fk.launches["mul"]
+    before = dict(fk.launches)
     inv = fk.batch_inverse(FR, v)
-    k1 = fk.launches["mul"] - before
+    per_call = {k: fk.launches[k] - before[k] for k in ("mul", "scan", "inverse")}
     one = fk.mul(FR, v, inv)
     ok = bool(torch.equal(one[~zero], FR.const(1, int((~zero).sum()), DEVICE))
               and not inv[zero].any())
+    want, plain_ms = _timed_once(lambda: fk.batch_inverse_plain(FR, v))
+    mism = _mismatches((inv,), (want,))
+    ragged = {}
+    for spec in (FR, FQ):
+        for m in SCAN_RAGGED:
+            rows = _random_fr_rows(rng, m)
+            ragged[f"{'Fr' if spec is FR else 'Fq'} n = {m}"] = sum(
+                _mismatches((fk.batch_inverse(spec, t),), (fk.batch_inverse_plain(spec, t),))
+                for t in [to_tensor(_planted_zeros(rows, z), DEVICE) for z in ZERO_PATTERNS])
+    copies = {"batch_inverse": _dtoh_copies(lambda: fk.batch_inverse(FR, v)),
+              "grand_product": _dtoh_copies(
+                  lambda: TorchBackend(DEVICE).grand_product(FrVec(v)))}
     # the function's own bound: n rows read and written once, and three
     # Montgomery products a row (prefix, suffix, the inverse's combine)
     bytes_s = 2 * 32 * n / HBM_BYTES_PER_S
     ops_s = 3 * MONT_MUL_OPS * n / INT32_MUL_PER_S
-    full = k1 - 1                       # the product of the total is one row
     return {"name": "batch_inverse", "replaces": "plonkit_tpu/tpu/pallas_kernels.py:173",
-            "elements": n, "inverse_checked": ok, "k1_launches_per_call": k1,
-            "ms": time_ms(lambda: fk.batch_inverse(FR, v), 5),
+            "elements": n, "inverse_checked": ok, "launches_per_call": per_call,
+            "mismatches": mism + sum(ragged.values()), "ragged_mismatches": ragged,
+            "ms": time_ms(lambda: fk.batch_inverse(FR, v), 20), "plain_ms": plain_ms,
             "bound_ms": max(bytes_s, ops_s) * 1e3,
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "launches_bound_ms": (full * 3 * 32 * n + 3 * 32) / HBM_BYTES_PER_S * 1e3}
+            "profiled_calls": copies}
 
 
 def phase_kernels(ctx) -> list:
     t0 = time.perf_counter()
-    rows = _field_rows() + _msm_rows(ctx) + _ntt_mxu_rows()
+    rows = _field_rows() + _msm_rows(ctx) + _ntt_mxu_rows() + _scan_rows()
     binv = _batch_inverse_record()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
           "batch_inverse": binv,
@@ -837,7 +991,11 @@ def phase_kernels(ctx) -> list:
                                  for r in rows if "batched" in r}})
     bad = [r["name"] for r in rows
            if r["mismatches"] or r.get("batched", {}).get("mismatches")]
-    bad += [] if binv["inverse_checked"] else ["batch_inverse"]
+    copies = binv["profiled_calls"]
+    if (not binv["inverse_checked"] or binv["mismatches"] or any(c["dtoh"] for c in copies.values())
+            or not all(c["k12_events"] for c in copies.values())
+            or binv["launches_per_call"] != {"mul": 0, "scan": 2, "inverse": 1}):
+        bad.append("batch_inverse")
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -946,7 +1104,9 @@ def _launch_counts() -> dict:
             "K8 combine": mk.launches["combine"],
             "K9 balanced_digits": ntt_mxu.launches["balanced_digits"],
             "K10 dft_product": ntt_mxu.launches["dft_product"],
-            "K11 fold_redc": ntt_mxu.launches["fold_redc"]}
+            "K11 fold_redc": ntt_mxu.launches["fold_redc"],
+            "K12 field_scan": fk.launches["scan"],
+            "K13 field_inverse": fk.launches["inverse"]}
 
 
 @contextlib.contextmanager

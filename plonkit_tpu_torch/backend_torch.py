@@ -4,11 +4,13 @@ ported from plonkit_tpu/backend_jax.py.
 Vectors are `FrVec` handles over [N, 8] int32 Montgomery rows
 (gpu/mont.py) that stay on the backend's device; python ints cross the
 boundary only for file IO and transcript scalars.  Every field operation
-goes through the kernel wrappers (gpu/field_kernels.py K1/K2/K4,
-gpu/ntt.py K3/K5): on the card each is one kernel launch, on the CPU the
-plain version.  The JAX package's fused programs (_gate_residual_jit,
-_quotient_column_jit, _perm_grand_product_jit, the scans) become sequences
-of launches: each add(x, mul(a, b)) they compose from pk.mul/pk.add is one
+goes through the kernel wrappers (gpu/field_kernels.py K1/K2/K4 and
+the scans K12/K13, gpu/ntt.py K3/K5): on the card each is one kernel
+launch, on the CPU the plain version.  The JAX package's scans (prefix
+products, suffix sums, batch inverse) are one K12 launch each, a batch
+inverse two K12 and one K13.  Its fused programs (_gate_residual_jit,
+_quotient_column_jit, _perm_grand_product_jit) become sequences of
+launches: each add(x, mul(a, b)) they compose from pk.mul/pk.add is one
 K4 mul_add(a, b, x) here, the rest K1/K2; fusing longer chains is later
 work.
 Transforms take the NTT engine that PLONKIT_TPU_NTT names, as in
@@ -91,9 +93,6 @@ class TorchBackend:
     def _const(self, k: int, n: int) -> torch.Tensor:
         return FR.const(k % R, n, self.device)
 
-    def _ones(self, n: int) -> torch.Tensor:
-        return self._const(1, n)
-
     def _mul(self, a, b):
         return fk.mul(FR, a, b)
 
@@ -107,17 +106,8 @@ class TorchBackend:
         return fk.mul(FR, a, self._const(k, a.shape[0]))
 
     def _suffix_sums(self, v: torch.Tensor) -> torch.Tensor:
-        """S_k = sum_{j>=k} v_j (Hillis-Steele, one K2a launch per round)."""
-        n = v.shape[0]
-        zeros = torch.zeros_like(v)
-        p = v
-        for i in range(max(1, (n - 1).bit_length())):
-            d = 1 << i
-            p = self._add(p, torch.cat([p[d:], zeros[:d]]))
-        return p
-
-    def _shift_in_one(self, factors: torch.Tensor) -> torch.Tensor:
-        return torch.cat([self._ones(1), factors[:-1]])
+        """S_k = sum_{j>=k} v_j (one K12 launch)."""
+        return fk.scan(FR, v, "add", reverse=True)
 
     def _vec(self, data: torch.Tensor, like=None) -> FrVec:
         """The handle of a result; `like` is an operand of the same length
@@ -322,9 +312,9 @@ class TorchBackend:
         return self.mul(acc, t)
 
     def grand_product(self, factors: FrVec) -> FrVec:
-        """[1, f_0, f_0 f_1, ...]: the prefix products of the factors
-        shifted in by one (K1 scan rounds)."""
-        return FrVec(fk.prefix_products(FR, self._shift_in_one(factors.data)))
+        """[1, f_0, f_0 f_1, ...]: the exclusive prefix products of the
+        factors (one K12 launch)."""
+        return FrVec(fk.scan(FR, factors.data, "mul", exclusive=True))
 
     # -- memory placement ------------------------------------------------------
     # The extended prover keeps monomial forms in host memory and brings
@@ -470,8 +460,9 @@ class TorchBackend:
         q_k = z^-(k+1) * S_{k+1} where S_k = suffix sum of c_j z^j."""
         n = len(coeffs)
         z_pows = gntt.powers(point % R, n, self.device)
-        suffix = self._suffix_sums(self._mul(coeffs.data.contiguous(), z_pows))
-        s_next = torch.cat([suffix[1:], torch.zeros_like(suffix[:1])])
+        # S_{k+1}: the exclusive suffix sums (one K12 launch)
+        s_next = fk.scan(FR, self._mul(coeffs.data.contiguous(), z_pows), "add", reverse=True,
+                         exclusive=True)
         zinv = fr_inv(point % R)
         zi_shift = self._scale(gntt.powers(zinv, n, self.device), zinv)  # z^-(k+1)
         return FrVec(self._mul(s_next, zi_shift)[:n - 1])

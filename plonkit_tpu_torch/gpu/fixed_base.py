@@ -11,8 +11,9 @@ kernels, with no kernel of its own:
   limbs;
 - each window gathers its table row for every lane (`index_select`) and
   adds it with one K7 `padd` launch over all lanes: 32 launches a chunk;
-- the affine conversion inverts Z over Fq by Montgomery's trick (the K1
-  scans of field_kernels.batch_inverse), then X * Z^-2 and Y * Z^-3 by K1.
+- the affine conversion inverts Z over Fq by Montgomery's trick
+  (field_kernels.batch_inverse: two K12 scans and one K13 inverse), then
+  X * Z^-2 and Y * Z^-3 by K1.
 
 The SRS's tau powers are made on the device too (ntt.powers, K1), so no
 python int per point is made anywhere; the points leave the card as

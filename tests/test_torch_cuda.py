@@ -108,6 +108,77 @@ def test_backend_rounds_on_the_card_match_the_cpu(card):
     assert all(torch.equal(a, b) for a, b in zip(rows_c, rows_g)) and ev_c == ev_g
 
 
+SCAN_SIZES = (1, 2, 3, 4095, 4096, 4097, 3 * 4096 + 5, 40 * 1024 + 17)   # K12 tiles: 4096 rows
+
+
+def scan_rows(spec, n, seed, zeros="none"):
+    """[n, 8] Montgomery rows of seeded random values, zeros planted at the
+    first row, the last row, every third row or everywhere."""
+    rng = np.random.default_rng(seed)
+    rows = spec.to_mont_np([int.from_bytes(rng.bytes(32), "little") % spec.p
+                            for _ in range(n)])
+    if zeros == "all":
+        rows[:] = 0
+    elif zeros == "first":
+        rows[0] = 0
+    elif zeros == "last":
+        rows[-1] = 0
+    elif zeros == "thirds":
+        rows[::3] = 0
+    return mont.to_tensor(rows, "cpu")
+
+
+@pytest.mark.parametrize("op", ["mul", "add"])
+def test_field_scan_matches_plain(card, op):
+    """K12 in every direction and form at ragged n, against scan_plain."""
+    for spec in (mont.FR, mont.FQ):
+        for n in SCAN_SIZES:
+            x = scan_rows(spec, n, 30 + n, "first").to(card)
+            for reverse in (False, True):
+                for exclusive in (False, True):
+                    before = fk.launches["scan"]
+                    got = fk.scan(spec, x, op, reverse, exclusive)
+                    assert fk.launches["scan"] == before + 1
+                    assert torch.equal(got, fk.scan_plain(spec, x, op, reverse, exclusive)), \
+                        (spec.kernel_id, n, reverse, exclusive)
+
+
+def test_field_scan_many_tiles_matches_plain(card):
+    """K12 over 2^20 + 3 rows (257 tiles, the last of 3 rows): the
+    look-back across many tiles, both directions."""
+    x = scan_rows(mont.FR, (1 << 20) + 3, 40).to(card)
+    for op, reverse, exclusive in (("mul", False, True), ("add", True, True),
+                                   ("mul", True, False)):
+        assert torch.equal(fk.scan(mont.FR, x, op, reverse, exclusive),
+                           fk.scan_plain(mont.FR, x, op, reverse, exclusive))
+
+
+@pytest.mark.parametrize("zeros", ["none", "first", "last", "thirds", "all"])
+def test_batch_inverse_matches_plain(card, zeros):
+    """Two K12 launches and one K13, no K1, against batch_inverse_plain."""
+    for spec in (mont.FR, mont.FQ):
+        for n in SCAN_SIZES:
+            v = scan_rows(spec, n, 50 + n, zeros).to(card)
+            before = dict(fk.launches)
+            got = fk.batch_inverse(spec, v)
+            assert (fk.launches["scan"] - before["scan"], fk.launches["inverse"]
+                    - before["inverse"], fk.launches["mul"] - before["mul"]) == (2, 1, 0)
+            assert torch.equal(got, fk.batch_inverse_plain(spec, v)), (spec.kernel_id, n)
+
+
+def test_field_inverse_matches_plain(card):
+    """K13 on edge values and random rows, one thread a row."""
+    for spec in (mont.FR, mont.FQ):
+        rows = torch.cat([mont.to_tensor(spec.to_mont_np([0, 1, 2, spec.p - 1, spec.p - 2]),
+                                         "cpu"), scan_rows(spec, 59, 60)]).to(card)
+        steps = torch.zeros(rows.shape[0], dtype=torch.int32, device=card)
+        before = fk.launches["inverse"]
+        got = fk.inverse(spec, rows, steps)
+        assert fk.launches["inverse"] == before + 1
+        assert torch.equal(got, mont.inverse(spec, rows))
+        assert int(steps[0]) == 0 and int((steps[1:] & 0xFFFF).min()) > 0
+
+
 def _msm_inputs(card, n, seed):
     """A device MSM context over n dev-SRS bases, and seeded scalars with
     a planted hot bucket (window 0, digit 3) and some zeros."""
@@ -344,14 +415,16 @@ def test_msm_vec_end_many_on_the_card_matches_native(card):
 
 
 def test_device_srs_matches_serial_srs(card):
-    """gpu/fixed_base on the card (32 K7 launches, K1 for the inversion)
-    gives srs.py's points."""
+    """gpu/fixed_base on the card (32 K7 launches, the inversion by K12
+    and K13, K1 for the rest) gives srs.py's points."""
     from plonkit_tpu_torch.gpu import fixed_base
     n = 1 << 12
-    before = (mk.launches["padd"], fk.launches["mul"])
+    before = (mk.launches["padd"], fk.launches["mul"], fk.launches["scan"],
+              fk.launches["inverse"])
     x, y, inf = fixed_base.gen_crs_g1_device(12, 42, device=card)
     assert mk.launches["padd"] == before[0] + fixed_base.NUM_WINDOWS
     assert fk.launches["mul"] > before[1]
+    assert (fk.launches["scan"], fk.launches["inverse"]) == (before[2] + 2, before[3] + 1)
     pts = [None if i else (a, b) for a, b, i in
            zip(mont.FQ.from_limbs_np(x), mont.FQ.from_limbs_np(y), inf)]
     assert pts == dev_srs_g1(n, 42)

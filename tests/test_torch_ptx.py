@@ -1,11 +1,14 @@
-"""The PTX of the port's field arithmetic (plonkit_tpu_torch/csrc/field.cuh)
-run here, without a card, by a small emulator of the carry-flag
+"""The PTX of the port's field arithmetic (plonkit_tpu_torch/csrc/field.cuh,
+and the carry chains of K13 field_inverse in csrc/scan.cu) run here,
+without a card, by a small emulator of the carry-flag
 instructions it uses (add/addc, sub/subc, mul, mad/madc with .lo/.hi and
 .cc): each asm statement's template is read from the header, its operands
 bound in the order of its constraint list, and the C++ around the
 statements (which statement runs when, with which limbs) is mirrored here.
 The Montgomery product, add and sub are held against big-integer
-arithmetic for Fr and Fq on edge and seeded random values, and every
+arithmetic for Fr and Fq on edge and seeded random values, K13's almost
+Montgomery inverse (its loop mirrored here over the emulated chains)
+against pow(a, -1, p), and every
 chain that ends without .cc must drop a carry of 0 (but the add of p
 after a borrow in fe_sub, which wraps mod 2^256 by design).  The kernels
 themselves run only on the card (tests/test_torch_cuda.py)."""
@@ -18,14 +21,16 @@ import pytest
 
 from plonkit_tpu_torch.fields import FQ_MODULUS, FR_MODULUS
 
-SRC = (Path(__file__).parents[1] / "plonkit_tpu_torch" / "csrc" / "field.cuh").read_text()
+CSRC = Path(__file__).parents[1] / "plonkit_tpu_torch" / "csrc"
+SRC = (CSRC / "field.cuh").read_text()
+SCAN_SRC = (CSRC / "scan.cu").read_text()
 MASK = (1 << 32) - 1
 
 
-def _asm_blocks(signature: str) -> list:
+def _asm_blocks(signature: str, src: str = SRC) -> list:
     """The instruction lists of the asm statements in the function whose
     definition starts with `signature`, in source order."""
-    body = SRC[SRC.index(signature):]
+    body = src[src.index(signature):]
     body = body[:body.index("\n}\n")]
     out = []
     for m in re.finditer(r"asm\((.*?)\);", body, re.S):
@@ -161,3 +166,74 @@ def test_field_ptx_uses_only_emulated_instructions():
     seen = {id(b) for blocks in (REDUCE, ADD, SUB, FIRST, SHIFT_ODD, MAD_EVEN, MAD_ODD, MONT)
             for b in blocks}
     assert len(seen) == SRC.count("asm(") == 9
+
+
+ADD_RAW = _asm_blocks("__device__ __forceinline__ Fe add_raw", SCAN_SRC)
+SUB_RAW = _asm_blocks("__device__ __forceinline__ Fe sub_raw", SCAN_SRC)
+DIV_POW2 = _asm_blocks("__device__ __forceinline__ Fe div_pow2", SCAN_SRC)
+
+
+def k13_inverse(x, p, n0):
+    """csrc/scan.cu almost_inverse, step by step over the emulated chains:
+    (x^-1 mod p, steps, k)."""
+    pl = limbs(p)
+
+    def add_raw(a, b):
+        return _run(ADD_RAW[0], [0] * 8 + a + b)[:8]
+
+    def sub_raw(a, b):
+        assert value(a) >= value(b)
+        return _run(SUB_RAW[0], [0] * 8 + a + b)[:8]
+
+    def div_pow2(a, k):
+        m = (a[0] * n0 & MASK) & ((1 << k) - 1)
+        t = _run(DIV_POW2[0], [0] * 9 + [m] + a + pl)[:9]
+        return reduce_once(limbs(value(t) >> k), pl)
+
+    def even_shift(a):
+        return (a[0] & -a[0]).bit_length() - 1 if a[0] else 31
+
+    u, v, r, s, k, steps = pl, limbs(x), limbs(0), limbs(1), 0, 0
+    while value(v):
+        if not u[0] & 1:
+            t = even_shift(u)
+            u, s, k = limbs(value(u) >> t), limbs(value(s) << t), k + t
+        elif not v[0] & 1:
+            t = even_shift(v)
+            v, r, k = limbs(value(v) >> t), limbs(value(r) << t), k + t
+        elif value(u) > value(v):
+            u, r = sub_raw(u, v), add_raw(r, s)
+        else:
+            v, s = sub_raw(v, u), add_raw(r, s)
+        assert max(value(r), value(s)) < 2 * p      # the shifts drop no bit
+        steps += 1
+        assert steps <= 4096
+    out = sub_raw(pl, reduce_once(r, pl))
+    for shift in [31] * (k // 31) + ([k % 31] if k % 31 else []):
+        out = div_pow2(out, shift)
+    return value(out), steps, k
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_field_inverse_ptx_matches_big_integers(field):
+    """K13: x^-1 mod p, then one Montgomery product by R^3 mod p takes the
+    Montgomery form aR to a^-1 R."""
+    p = FIELDS[field]
+    n0 = -pow(p, -1, 1 << 32) % (1 << 32)
+    rng = np.random.default_rng(len(field))
+    xs = [1, 2, 3, p - 1, p - 2, p // 2, 1 << 253, (1 << 256) % p] + \
+        [int.from_bytes(rng.bytes(32), "little") % p for _ in range(24)]
+    r3 = limbs(pow(1 << 256, 3, p))
+    for x in xs:
+        inv, steps, k = k13_inverse(x, p, n0)
+        assert inv == pow(x, -1, p) and steps < 1024 and k < 1 << 16, x
+        a = x * (1 << 256) % p                       # Montgomery form in
+        got = value(fe_mont_mul(limbs(k13_inverse(a, p, n0)[0]), r3, limbs(p), n0))
+        assert got == pow(x, -1, p) * (1 << 256) % p, x
+
+
+def test_scan_ptx_uses_only_emulated_instructions():
+    """K13's carry chains are the only plain asm statements of scan.cu (its
+    others are the look-back's release stores and acquire loads and the
+    staging copies)."""
+    assert SCAN_SRC.count("asm(") == 3 and len(ADD_RAW) == len(SUB_RAW) == len(DIV_POW2) == 1
