@@ -82,10 +82,13 @@ Phases, each printing a JSON line with its wall seconds:
    of the bucket reduction (K7r, K7w, K7) per commitment, at most 8, and
    one K8 launch for each group of commitments the backend was asked for
    (a commit_many call, or a single commit).  The proof must verify and a
-   tampered copy must not.  The same setup then makes vk.bin
-   and proof.bin again with every commitment in the host Pippenger (a
+   tampered copy must not.  Then the synthetic chain at a 2^16 domain
+   (REFERENCE_LOG2: below the main domain, since the host Pippenger's
+   22 commitments would take most of a minute at 2^20)
+   makes vk.bin and proof.bin with commitments on the card, and the same
+   setup makes them again with every commitment in the host Pippenger (a
    TorchBackend subclass defined here): the bytes must be identical.  A
-   last prove on the device setup runs under torch.profiler: device time by
+   last prove on the 2^20 device setup runs under torch.profiler: device time by
    kernel, and the device's busy time and idle share over its wall time;
 7. cli: `python3 -m plonkit_tpu_torch` in subprocesses, on the card, on the
    in-repo circuit scratch/recursive_r22 (domain 64): setup -p 10, analyse,
@@ -94,7 +97,11 @@ Phases, each printing a JSON line with its wall seconds:
    proof.bin), verify (exit 0) and a tampered proof (exit 144),
    generate-verifier (no placeholder left), prove -t rescue of
    scratch/recursive_r5/witness_0.json (equal to that fixture's proof_0.bin)
-   and verify -t rescue (exit 0);
+   and verify -t rescue (exit 0).  The third inner proof of phase 10:
+   scripts/gen_inner_circuit.py writes the circuit (equal to the fixture's
+   file) and a third witness, witness_2.json; prove -t rescue of it on the
+   card and with --backend cpu in the same wave must give the same
+   proof_2.bin, and verify -t rescue must accept the card's;
 8. cli at full width: the main path's circuit written as .r1cs and .wtns,
    then export-verification-key, prove and verify through the CLI: vk.bin
    and proof.bin must equal the main phase's bytes from the API.  No CLI
@@ -111,17 +118,25 @@ Phases, each printing a JSON line with its wall seconds:
    Beside them, export-recursive-verification-key -c 2 -i 2 of the
    two-proof circuit of scratch/recursive_r22 (2,307,899 gates, a 2^22
    domain): its recursive_vk.bin must equal that fixture's, made by the
-   JAX package.  Phases 7, 8 and 9 run at the same time, and so do the
+   JAX package; and export-recursive-verification-key -c 3 -i 2 (3,003,875
+   gates, still a 2^22 domain), the vk of phase 10's aggregate, which no
+   package had made before (phase 10 verifies with it).  Phases 7, 8 and 9
+   run at the same time, and so do the
    calls of each that need no file of another: their seconds are wall
    times of processes that share the host and the card;
-10. recursive path in this process: prove_aggregation of the two proofs
-   scratch/recursive_r22/proof_{0,1}.bin at a 2^22 domain under
-   torch.profiler, with every kernel's launches counted from 0 (each must
-   launch), its stage times (the prover rounds x r1 ... x r5),
-   torch.cuda.max_memory_allocated(), the device's busy time and idle
-   share; verify_aggregation with phase 9's two-proof vk must accept it and
-   reject a copy with one flipped byte of the outer public input, and
-   check_aggregation must accept it.  Then the split coset transforms that
+10. recursive path in this process, the reference's workload of three
+   proofs: prove_aggregation of scratch/recursive_r22/proof_{0,1}.bin (the
+   JAX package's) and phase 7's proof_2.bin at a 2^22 domain under
+   torch.profiler, with its gate count (3,003,875, from the port's log
+   line), every kernel's launches counted from 0 (each must launch, the
+   butterflies excepted), its stage times (the prover rounds x r1 ... x
+   r5), torch.cuda.max_memory_allocated(), the device's busy time and idle
+   share; verify_aggregation with phase 9's three-proof vk must accept it
+   and reject a copy with one flipped byte of the outer public input, and
+   check_aggregation must accept it.  The aggregate is written as
+   recursive_proof.bin: the CLI's recursive-verify must exit 0 on it and
+   144 on the flipped copy, and check-aggregation with the three-line
+   proof list 0.  Then the split coset transforms that
    only this size reaches (backend_torch.SPLIT_NTT_MIN = 2^24): the
    2^24-point coset LDE of one 2^22-point vector, its coset iNTT and the
    2^24-point coset NTT of that LDE, split and monolithic (the threshold
@@ -132,8 +147,11 @@ Phases, each printing a JSON line with its wall seconds:
    (solvm.py, through contract.py) on the card's proofs: phase 7's
    verifier.sol on its keccak proof.json / public.json, phase 9's
    recursive_verifier.sol on its recursive_proof.json, and the recursive
-   verifier of phase 9's two-proof vk on phase 10's aggregate; each must
-   accept the proof and reject every tampered copy;
+   verifier of phase 9's three-proof vk, rendered for all six inputs of the
+   three proofs, on phase 10's aggregate; each must accept the proof and
+   reject every tampered copy.  The same verifier rendered for one proof's
+   two inputs, as generate-recursive-verifier -i 2 renders it, is run on
+   the aggregate too, and what it does recorded;
 12. poseidon (phases 12-14 run after phase 10's split check and before
    phase 11, so that phases 1-11 measure as before): the Poseidon hash
    chain of scripts/bench_prove.py (poseidon_chain_circuit(20):
@@ -206,8 +224,11 @@ KERNEL_LOG2 = 20        # width of K1-K5 and K7
 SWEEP_LOG2 = 16         # scalars of the K6 one-window check
 CROSS_LOG2 = 10         # phase 5 domain
 MAIN_LOG2 = 20          # phase 6 domain
+REFERENCE_LOG2 = 16     # phase 6's prove with host commitments
 ONE_PROOF_LOG2 = 21     # the aggregation circuit of one proof (phase 9)
-PAIR_LOG2 = 22          # the aggregation circuit of two proofs (phases 9, 10)
+PAIR_LOG2 = 22          # the aggregation circuits of two and three proofs (phases 9, 10)
+AGG_PROOFS = 3          # the reference's recursive workload (phase 10)
+AGG_GATES = 3_003_875   # its aggregation circuit
 SRS_LOG2 = PAIR_LOG2    # the device SRS
 SPLIT_FACTOR = 4        # the prover's LDE factor: 2^24-point transforms at 2^22
 SRS_CHECK_LOG2 = 12     # key prefix held against srs.py byte for byte
@@ -1188,17 +1209,14 @@ def phase_main(key: str):
     rejected = not verify(vk, _tampered(proof))
     times["verify"] = time.perf_counter() - t0
 
-    # the same setup, every commitment in the host Pippenger
     t0 = time.perf_counter()
-    ref = copy.copy(setup)
-    ref.backend, ref._prover_ctx = _host_commit_backend(), None
-    same = {"vk.bin": ref.make_verification_key().to_bytes() == vk.to_bytes(),
-            "proof.bin": ref.prove(circuit).to_bytes() == proof.to_bytes()}
+    same = _host_commit_reference(key)
     times["host_commit_reference"] = time.perf_counter() - t0
 
     emit({"phase": "main", "domain": domain, "msm": "device",
           "verified": ok, "tampered_rejected": rejected,
           "identical_to_host_commitments": same,
+          "host_commit_reference_domain": 1 << REFERENCE_LOG2,
           "warm_prove_by_ntt_engine": engines, "first_proof_sha256": digest,
           "engines_give_the_first_proof": same_engines,
           "seconds": {k: round(v, 3) for k, v in times.items()},
@@ -1234,6 +1252,24 @@ def phase_main(key: str):
         raise AssertionError(f"kernels never launched in the pease prove: {idle}")
     profile_prove(setup, circuit, vk)
     return launches, launches_pease, circuit, vk.to_bytes(), proof.to_bytes()
+
+
+def _host_commit_reference(key: str) -> dict:
+    """The synthetic chain at a 2^REFERENCE_LOG2 domain: vk.bin and proof.bin
+    with commitments on the card, then from the same setup with every
+    commitment in the host Pippenger.  Whether the bytes are equal."""
+    from plonkit_tpu_torch.api import SetupForProver
+    from plonkit_tpu_torch.frontend.synthetic import synth_circuit
+    from plonkit_tpu_torch.serialization import CrsHandle
+    circuit = synth_circuit(REFERENCE_LOG2 - 1)
+    setup = SetupForProver(circuit, CrsHandle(key), device=DEVICE)
+    if setup.setup_polynomials.domain_size != 1 << REFERENCE_LOG2:
+        raise AssertionError(f"reference domain {setup.setup_polynomials.domain_size}")
+    vk, proof = setup.make_verification_key(), setup.prove(circuit)
+    ref = copy.copy(setup)
+    ref.backend, ref._prover_ctx = _host_commit_backend(), None
+    return {"vk.bin": ref.make_verification_key().to_bytes() == vk.to_bytes(),
+            "proof.bin": ref.prove(circuit).to_bytes() == proof.to_bytes()}
 
 
 @contextlib.contextmanager
@@ -1433,14 +1469,27 @@ def _same_file(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
+def third_proof_path(tmp: str) -> str:
+    """Phase 7's rescue proof of gen_inner_circuit.py's witness_2.json."""
+    return os.path.join(tmp, "cli64", "proof_2.bin")
+
+
 def phase_cli(tmp: str) -> None:
-    """The base subcommands on the in-repo domain-64 circuit, on the card.
+    """The base subcommands on the in-repo domain-64 circuit, on the card,
+    and the third inner proof of phase 10 (scripts/gen_inner_circuit.py's
+    witness_2.json, proved with -t rescue on the card and on the CPU).
     Calls that do not need each other's files run at once."""
     t_all = time.perf_counter()
     d = os.path.join(tmp, "cli64")
     os.makedirs(d)
     circuit = os.path.join(FIXTURES, "circuit.r1cs.json")
     witness = os.path.join(FIXTURES, "witness_0.json")
+    gen = os.path.join(tmp, "inner3")
+    os.makedirs(gen)
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts", "gen_inner_circuit.py"), gen,
+                    str(AGG_PROOFS)], check=True, capture_output=True, timeout=120)
+    third = ["prove", "-m", "setup.key", "-c", os.path.join(gen, "circuit.r1cs.json"),
+             "-w", os.path.join(gen, "witness_2.json"), "-t", "rescue"]
     s = cli_together(("setup", ["setup", "-p", "10", "-m", "setup.key"]),
                      ("analyse", ["analyse", "-c", circuit, "-o", "analyse.json"]), cwd=d)
     s.update(cli_together(
@@ -1468,9 +1517,15 @@ def phase_cli(tmp: str) -> None:
                              os.path.join(AGG_FIXTURES, "witness_0.json"), "-t", "rescue",
                              "-p", "proof_rescue.bin", "-j", "proof_rescue.json",
                              "-i", "public_rescue.json"]),
+        ("prove -t rescue witness_2", third + ["-p", "proof_2.bin", "-j", "proof_2.json",
+                                               "-i", "public_2.json"]),
+        ("--backend cpu prove -t rescue witness_2", ["--backend", "cpu"] + third + [
+            "-p", "proof_2_cpu.bin", "-j", "proof_2_cpu.json", "-i", "public_2_cpu.json"]),
         cwd=d))
     s.update(cli_together(("verify -t rescue", ["verify", "-p", "proof_rescue.bin", "-v",
-                                                "vk.bin", "-t", "rescue"]), cwd=d))
+                                                "vk.bin", "-t", "rescue"]),
+                          ("verify -t rescue proof_2", ["verify", "-p", "proof_2.bin", "-v",
+                                                        "vk.bin", "-t", "rescue"]), cwd=d))
     with open(os.path.join(d, "analyse.json")) as f:
         stats = json.load(f)
     with open(os.path.join(d, "verifier.sol")) as f:
@@ -1482,7 +1537,11 @@ def phase_cli(tmp: str) -> None:
             "--backend mesh prove = prove": _same_file(os.path.join(d, "proof_mesh.bin"),
                                                        os.path.join(d, "proof.bin")),
             "prove -t rescue = fixture proof_0.bin": _same_file(
-                os.path.join(d, "proof_rescue.bin"), os.path.join(AGG_FIXTURES, "proof_0.bin"))}
+                os.path.join(d, "proof_rescue.bin"), os.path.join(AGG_FIXTURES, "proof_0.bin")),
+            "gen_inner_circuit.py circuit = fixture circuit": _same_file(
+                os.path.join(gen, "circuit.r1cs.json"), circuit),
+            "proof_2.bin card = cpu": _same_file(third_proof_path(tmp),
+                                                 os.path.join(d, "proof_2_cpu.bin"))}
     emit({"phase": "cli", "domain": 64, "identical": same, "num_gates": stats["num_gates"],
           "contract_placeholders_left": sol.count("{{"),
           "seconds": {k: round(v, 3) for k, v in s.items()},
@@ -1602,12 +1661,58 @@ def phase_recursive_vk_pair(tmp: str, key: str) -> str:
     return path
 
 
-def phase_recursive(key: str, rec_vk_path: str):
-    """prove_aggregation of scratch/recursive_r22's two proofs in this
-    process under torch.profiler: launches of every kernel from 0, stage
-    times, peak device memory, device busy time and idle share; then
-    verify_aggregation (and a tampered copy) and check_aggregation.
-    Returns the launches and the aggregate."""
+def phase_recursive_vk_three(tmp: str, key: str) -> str:
+    """export-recursive-verification-key -c 3 -i 2 of scratch/recursive_r22's
+    circuit, a CLI process: the vk of phase 10's three-proof aggregate (no
+    reference file: neither package had made one).  Returns its path."""
+    from plonkit_tpu_torch.plonk.extended import VerificationKey2
+    d = os.path.join(tmp, "recursive_three")
+    os.makedirs(d)
+    seconds = cli("export-recursive-verification-key", "-c", str(AGG_PROOFS), "-i", "2",
+                  "-m", key, "-o", os.path.join(FIXTURES, "vk.bin"), cwd=d)
+    path = os.path.join(d, "recursive_vk.bin")
+    rec_vk = VerificationKey2.load(path)
+    emit({"phase": "recursive_vk_three", "proofs": AGG_PROOFS, "domain": rec_vk.n + 1,
+          "num_inputs": rec_vk.num_inputs, "seconds": round(seconds, 3)})
+    if rec_vk.n + 1 != 1 << PAIR_LOG2 or rec_vk.num_inputs != 1:
+        raise AssertionError(f"the three-proof recursive vk: n {rec_vk.n}, "
+                             f"{rec_vk.num_inputs} inputs")
+    return path
+
+
+@contextlib.contextmanager
+def _gate_count(found: list):
+    """Append the gate count of every aggregation circuit the port logs
+    ("aggregation circuit: %d gates, ...") to `found`."""
+    import logging
+
+    class Gates(logging.Handler):
+        def emit(self, record):
+            m = re.match(r"aggregation circuit: (\d+) gates", record.getMessage())
+            if m:
+                found.append(int(m.group(1)))
+
+    logger, handler = logging.getLogger("plonkit_tpu_torch"), Gates()
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def phase_recursive(tmp: str, key: str, rec_vk_path: str):
+    """prove_aggregation of three proofs at a 2^22 domain in this process
+    under torch.profiler (scratch/recursive_r22's proof_0.bin and
+    proof_1.bin, made by the JAX package, and phase 7's proof_2.bin): the
+    gate count, launches of every kernel from 0, stage times, peak device
+    memory, device busy time and idle share; then verify_aggregation with
+    phase 9's three-proof vk (and a tampered copy) and check_aggregation;
+    then recursive_proof.bin through the CLI: recursive-verify (0, and 144
+    on a tampered copy) and check-aggregation with the three-line proof
+    list.  Returns the launches and the aggregate."""
     import torch
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.backend_torch import TorchBackend
@@ -1616,15 +1721,17 @@ def phase_recursive(key: str, rec_vk_path: str):
                                                          prove_aggregation, verify_aggregation)
     from plonkit_tpu_torch.serialization import CrsHandle, Proof, VerificationKey
     vk = VerificationKey.load(os.path.join(FIXTURES, "vk.bin"))
-    proofs = [Proof.load(os.path.join(FIXTURES, f"proof_{i}.bin")) for i in (0, 1)]
+    paths = [os.path.join(FIXTURES, f"proof_{i}.bin") for i in (0, 1)] + [third_proof_path(tmp)]
+    proofs = [Proof.load(p) for p in paths]
     backend = TorchBackend(DEVICE)
     crs = CrsHandle(key)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     profiling.reset()
+    gates = []
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with _gate_count(gates), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         agg = prove_aggregation(crs, proofs, vk, backend=backend)
         torch.cuda.synchronize()
@@ -1635,21 +1742,42 @@ def phase_recursive(key: str, rec_vk_path: str):
     kernels, busy, by_kernel = device_activity(prof)
     t0 = time.perf_counter()
     rec_vk = VerificationKey2.load(rec_vk_path)
-    blob = io.BytesIO()
-    agg.write(blob)
-    tampered = AggregatedProof.read(io.BytesIO(_flip_outer_input(blob.getvalue())))
-    checks = {"verify_aggregation": verify_aggregation(rec_vk, agg, vk),
-              "tampered_rejected": not verify_aggregation(rec_vk, tampered, vk),
-              "check_aggregation": check_aggregation(vk, proofs, agg),
-              "domain_2pow22": agg.proof.n + 1 == 1 << PAIR_LOG2}
-    emit({"phase": "recursive", "proofs": len(proofs), "domain": agg.proof.n + 1,
-          "n": agg.proof.n, "checks": checks, "check_s": round(time.perf_counter() - t0, 3),
+    d = os.path.dirname(rec_vk_path)
+    agg.save(os.path.join(d, "recursive_proof.bin"))
+    with open(os.path.join(d, "recursive_proof.bin"), "rb") as f:
+        blob = _flip_outer_input(f.read())
+    with open(os.path.join(d, "tampered.bin"), "wb") as f:
+        f.write(blob)
+    with open(os.path.join(d, "old_proof_list.txt"), "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    tampered = AggregatedProof.read(io.BytesIO(blob))
+    with ThreadPoolExecutor(1) as pool:     # the CLI's checks beside this process's
+        cli_run = pool.submit(
+            cli_together,
+            ("recursive-verify", ["recursive-verify", "-p", "recursive_proof.bin"]),
+            ("recursive-verify tampered", ["recursive-verify", "-p", "tampered.bin"], 400 % 256),
+            ("check-aggregation", ["check-aggregation", "-o", "old_proof_list.txt",
+                                   "-v", os.path.join(FIXTURES, "vk.bin")]), cwd=d)
+        checks = {"num_gates": gates == [AGG_GATES],
+                  "verify_aggregation": verify_aggregation(rec_vk, agg, vk),
+                  "tampered_rejected": not verify_aggregation(rec_vk, tampered, vk),
+                  "check_aggregation": check_aggregation(vk, proofs, agg),
+                  "domain_2pow22": agg.proof.n + 1 == 1 << PAIR_LOG2,
+                  "individual_inputs": len(agg.individual_inputs) == AGG_PROOFS * vk.num_inputs}
+        check_s = time.perf_counter() - t0
+        cli_s = cli_run.result()
+    emit({"phase": "recursive", "proofs": len(proofs), "num_gates": gates[-1] if gates else None,
+          "domain": agg.proof.n + 1, "n": agg.proof.n, "checks": checks,
+          "check_s": round(check_s, 3),
+          "cli_exit_codes": {"recursive-verify": 0, "recursive-verify tampered": 400 % 256,
+                             "check-aggregation": 0},
+          "cli_s": {k: round(v, 3) for k, v in cli_s.items()},
           "prove_aggregation_s": wall, "stages_s": {k: round(v, 3) for k, v in stages.items()},
           "launches": launches, "max_memory_allocated_bytes": peak,
           "device_events": len(kernels), "device_busy_s": busy,
           "device_idle_share": 1 - busy / wall, "by_kernel": by_kernel})
     if not all(checks.values()):
-        raise AssertionError(f"the two-proof aggregate at 2^{PAIR_LOG2} fails: {checks}")
+        raise AssertionError(f"the {AGG_PROOFS}-proof aggregate at 2^{PAIR_LOG2} fails: {checks}")
     # on the card the tensor cores take every transform of 512 points or
     # more: the butterflies, left with the smaller ones, may idle
     idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES]
@@ -1773,12 +1901,12 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
     os.makedirs(d)
     vk = VerificationKey.load(os.path.join(FIXTURES, "vk.bin"))
     rec_vk = VerificationKey2.load(rec_vk_path)
-    # INDIVIDUAL_INPUTS is the count of every proof's inputs together
-    pair_sol = os.path.join(d, "recursive_verifier.sol")
-    with open(pair_sol, "w") as f:
+    # INDIVIDUAL_INPUTS is the count of every proof's inputs together: 6
+    three_sol = os.path.join(d, "recursive_verifier.sol")
+    with open(three_sol, "w") as f:
         f.write(render_recursive_verification_key(vk, rec_vk, len(agg.individual_inputs)))
-    pair_json = os.path.join(d, "recursive_proof.json")
-    with open(pair_json, "w") as f:
+    three_json = os.path.join(d, "recursive_proof.json")
+    with open(three_json, "w") as f:
         json.dump(agg.solidity_json(), f, indent=1)
     cli64, rec = os.path.join(tmp, "cli64"), os.path.join(tmp, "recursive")
     jobs = {
@@ -1788,8 +1916,8 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
         "recursive_verifier.sol, one proof at 2^21 (phase 9)": lambda: contract.run_recursive(
             os.path.join(rec, "recursive_verifier.sol"),
             os.path.join(rec, "recursive_proof.json")),
-        "recursive verifier, two proofs at 2^22 (phase 10)": lambda: contract.run_recursive(
-            pair_sol, pair_json),
+        f"recursive verifier, {AGG_PROOFS} proofs at 2^22 (phase 10)": lambda:
+            contract.run_recursive(three_sol, three_json),
     }
     found, seconds = {}, {}
     for name, job in jobs.items():
@@ -1797,7 +1925,7 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
         found[name] = job()
         seconds[name] = round(time.perf_counter() - t0, 3)
     # generate-recursive-verifier -i 2 renders one proof's input count: a
-    # contract that cannot take the pair's 4 inputs
+    # contract that cannot take the three proofs' 6 inputs
     per_proof = solvm.Interpreter(render_recursive_verification_key(vk, rec_vk, vk.num_inputs))
     try:
         per_proof_out = "returned %d" % per_proof.call(
@@ -1805,7 +1933,8 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
     except solvm.SolRevert as e:
         per_proof_out = f"reverted: {e}"
     emit({"phase": "contract", "runs": found, "seconds": seconds,
-          "pair_with_one_proof_input_count": per_proof_out,
+          "individual_inputs": len(agg.individual_inputs),
+          "three_with_one_proof_input_count": per_proof_out,
           "total_s": round(time.perf_counter() - t_all, 3)})
 
 
@@ -1889,18 +2018,20 @@ def main() -> int:
         launches, launches_pease, circuit, vk_bytes, proof_bytes = phase_main(key)
         torch.cuda.empty_cache()
         built = _build_snapshot()
-        with ThreadPoolExecutor(3) as pool:     # phases 7, 8 and 9 at once
+        with ThreadPoolExecutor(4) as pool:     # phases 7, 8 and 9 at once
             full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes)
             rec = pool.submit(phase_recursive_cli, tmp, key)
             pair_vk = pool.submit(phase_recursive_vk_pair, tmp, key)
+            three_vk = pool.submit(phase_recursive_vk_three, tmp, key)
             phase_cli(tmp)
             full.result()
             rec.result()
-            rec_vk_path = pair_vk.result()
+            pair_vk.result()
+            rec_vk_path = three_vk.result()
         if _build_snapshot() != built:
             raise AssertionError("a CLI process rebuilt a kernel library")
         del circuit
-        launches_recursive, agg = phase_recursive(key, rec_vk_path)
+        launches_recursive, agg = phase_recursive(tmp, key, rec_vk_path)
         torch.cuda.empty_cache()
         phase_split_ntt()
         torch.cuda.empty_cache()

@@ -32,7 +32,8 @@ names = [m.name for m in pkgutil.walk_packages(plonkit_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 missing = {"plonkit_tpu_torch." + m for m in (
-    "cli", "__main__", "solidity", "solvm", "contract", "frontend.witness", "gpu.fixed_base",
+    "cli", "__main__", "solidity", "solvm", "contract", "trace_summary", "frontend.witness",
+    "gpu.fixed_base",
     "gpu.ntt_mxu", "plonk.extended",
     "recursive", "recursive.aggregation", "recursive.batch", "recursive.cs",
     "recursive.ec_gadget", "recursive.franklin", "recursive.nonnative", "recursive.rescue",

@@ -7,7 +7,11 @@ JAX package's on the CPU:
   values;
 - the aggregation circuit of the in-repo fixture scratch/recursive_r5 (one
   rescue proof of the domain-64 circuit) has the same 1,611,923 gates,
-  wires, selectors, witness and public input in both packages;
+  wires, selectors, witness and public input in both packages; so do the
+  circuits of scratch/recursive_r22's two proofs (2,307,899 gates) and of
+  those two with a third (3,003,875 gates, still a 2^22 domain: the
+  reference's three-proof workload), and make_recursive_vk's dummy-proof
+  circuit of three proofs has the gates of the three real proofs;
 - off-circuit batched verification and the host aggregate of the
   fixture scratch/recursive_r22's proofs.
 
@@ -15,9 +19,13 @@ tests/test_torch_aggregation.py holds the fixture's aggregate and the
 recursive CLI.
 """
 
+import functools
+import hashlib
 import io
 import os
+import pickle
 import random
+import tempfile
 from types import SimpleNamespace
 
 import numpy as np
@@ -37,7 +45,7 @@ import plonkit_tpu.serialization as ref_serialization
 from plonkit_tpu_torch import native
 from plonkit_tpu_torch.curve import G1_GEN, g1_mul
 from plonkit_tpu_torch.fields import FQ_MODULUS as P, FR_MODULUS as R
-from plonkit_tpu_torch.plonk.extended import validate_witness2
+from plonkit_tpu_torch.plonk.extended import domain_size_for_gates, validate_witness2
 from plonkit_tpu_torch.recursive import (aggregation, batch, cs, ec_gadget, nonnative, rescue,
                                          rescue_gadget, rns, vk_tree)
 from plonkit_tpu_torch.serialization import Proof, VerificationKey
@@ -191,26 +199,99 @@ def test_batch_verify_matches_reference():
 
 # -- the aggregation circuits of the fixtures ------------------------------------
 
+THIRD = "third"    # the port's rescue proof of gen_inner_circuit.py's witness_2.json
+_GATES = {}        # the gate digest of the three-proof circuit, once built
+
+
+@functools.lru_cache(maxsize=None)
+def _third_proof_bytes() -> bytes:
+    from test_torch_recursive_three import generate, port_rescue_proof
+    with tempfile.TemporaryDirectory() as d:
+        return port_rescue_proof(generate(d), 2).to_bytes()
+
+
+def _load_proofs(proof_cls, fixture, names):
+    return [proof_cls.read(io.BytesIO(_third_proof_bytes())) if name == THIRD
+            else proof_cls.load(os.path.join(fixture, name)) for name in names]
+
+
+def _domain(c) -> int:
+    return domain_size_for_gates(len(c.input_vars) + c.num_gates)
+
+
+def _gate_digest(c) -> str:
+    """sha256 of the circuit's gates (wires, selectors, input variables),
+    which its witness does not change."""
+    return hashlib.sha256(pickle.dumps((c.wires, c.sels, c.input_vars))).hexdigest()
+
+
 @pytest.mark.parametrize("fixture,proofs,gates,variables", [
     (R5, ["proof_0.bin"], 1_611_923, 3_923_821),
     (R22, ["proof_0.bin", "proof_1.bin"], 2_307_899, 5_572_855),
-], ids=["one_proof_2pow21", "two_proofs_2pow22"])
+    (R22, ["proof_0.bin", "proof_1.bin", THIRD], 3_003_875, 7_221_889),
+], ids=["one_proof_2pow21", "two_proofs_2pow22", "three_proofs_2pow22"])
 def test_aggregation_circuit_matches_reference_at_full_size(fixture, proofs, gates, variables):
     """The circuit of scratch/recursive_r5 (one rescue proof; its aggregate
-    is in the fixture) and of scratch/recursive_r22 (two; the circuit the
-    JAX package's two-proof recursive_vk.bin was made for)."""
+    is in the fixture), of scratch/recursive_r22 (two; the circuit the
+    JAX package's two-proof recursive_vk.bin was made for) and of those two
+    with a third (the reference's workload of three proofs)."""
     vk = VerificationKey.load(os.path.join(fixture, "vk.bin"))
-    c, limbs = aggregation.build_aggregation_circuit(
-        vk, [Proof.load(os.path.join(fixture, p)) for p in proofs])
+    c, limbs = aggregation.build_aggregation_circuit(vk, _load_proofs(Proof, fixture, proofs))
     assert c.num_gates == gates
     assert len(c.values) == variables
     ref_c, ref_limbs = ref_aggregation.build_aggregation_circuit(
         ref_serialization.VerificationKey.load(os.path.join(fixture, "vk.bin")),
-        [ref_serialization.Proof.load(os.path.join(fixture, p)) for p in proofs])
+        _load_proofs(ref_serialization.Proof, fixture, proofs))
     assert limbs == ref_limbs
     assert c.public_inputs() == ref_c.public_inputs()
     assert _structure(c) == _structure(ref_c)
+    assert _domain(c) == 1 << (21 if fixture == R5 else 22)
     if fixture == R5:
         agg = aggregation.AggregatedProof.load(os.path.join(R5, "recursive_proof.bin"))
         assert c.public_inputs() == agg.proof.input_values
         assert limbs == agg.aggr_limbs
+    if len(proofs) == 3:
+        _GATES[3] = _gate_digest(c)
+
+
+def _recursive_vk_circuit(module, monkeypatch, vk, num_proofs):
+    """The circuit module.make_recursive_vk synthesises for num_proofs
+    (from its dummy proofs), caught before its setup and commitments."""
+    built = []
+
+    class Caught(Exception):
+        pass
+
+    def build(vk, proofs):
+        built.append(real(vk, proofs)[0])
+        raise Caught
+
+    real = module.build_aggregation_circuit
+    monkeypatch.setattr(module, "build_aggregation_circuit", build)
+    with pytest.raises(Caught):
+        module.make_recursive_vk(None, vk, num_proofs)
+    monkeypatch.setattr(module, "build_aggregation_circuit", real)
+    return built[0]
+
+
+def test_recursive_vk_circuit_of_three_proofs(monkeypatch):
+    """make_recursive_vk(num_proofs=3), which export-recursive-verification-key
+    -c 3 runs, synthesises from dummy proofs the circuit of the JAX
+    package's make_recursive_vk, witness included, and the gates of the
+    circuit of the three real proofs."""
+    c = _recursive_vk_circuit(aggregation, monkeypatch,
+                              VerificationKey.load(os.path.join(R22, "vk.bin")), 3)
+    assert c.num_gates == 3_003_875
+    assert _domain(c) == 1 << 22
+    digest = _gate_digest(c)
+    ref_c = _recursive_vk_circuit(ref_aggregation, monkeypatch,
+                                  ref_serialization.VerificationKey.load(
+                                      os.path.join(R22, "vk.bin")), 3)
+    assert _structure(c) == _structure(ref_c)
+    del c, ref_c
+    if 3 not in _GATES:
+        real, _ = aggregation.build_aggregation_circuit(
+            VerificationKey.load(os.path.join(R22, "vk.bin")),
+            _load_proofs(Proof, R22, ["proof_0.bin", "proof_1.bin", THIRD]))
+        _GATES[3] = _gate_digest(real)
+    assert digest == _GATES[3]
