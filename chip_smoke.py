@@ -15,13 +15,16 @@ Phases, each printing a JSON line with its wall seconds:
    store of K9 is 16 bytes wide, and unless K12's and K13's kernels
    (csrc/scan.cu) build without a spill.  Then the card's name and power
    limit as nvidia-smi reports them;
-2. srs: the tau = 42 dev SRS of 2^22 points, made on the card by the CLI's
-   `setup -p 22` (gpu/fixed_base.py: 32 K7 launches for the windowed
-   ladder, K1 for the tau powers, the inversion of Z by K12 and K13), run
-   in this process so that its launches can be counted (K7, K1, K12 and K13
-   must launch); the key's first 2^12
-   points must be byte-equal to srs.py's (serial python), and its G2 pair
-   to [G2, 42 G2].  The 2^20 and 2^21 phases read prefixes of this key;
+2. srs: the tau = 42 dev SRS of 2^23 points, made on the card by the CLI's
+   `setup -p 23` (gpu/fixed_base.py, in two parts of 2^22 points: 32 K7
+   launches a part for the windowed ladder, K1 for the tau powers, the
+   inversion of Z by K12 and K13), run in this process so that its
+   launches can be counted (K7, K1, K12 and K13 must launch); the key's
+   first 2^12 points must be byte-equal to srs.py's (serial python), the
+   sha256 of its first 2^22 points that of the 2^22 key `setup -p 22`
+   made (the in-repo scratch/recursive_r22/srs_2pow22.key's), and its G2
+   pair [G2, 42 G2].  The 2^20, 2^21 and 2^22 phases read prefixes of this
+   key;
 3. kernels: every kernel on the card against its plain PyTorch version on
    the card, on the same inputs, equal bit for bit (integer arithmetic):
    K1 mul, K2a add, K2b sub, K4 mul_add at 2^20 elements and K3
@@ -97,11 +100,12 @@ Phases, each printing a JSON line with its wall seconds:
    proof.bin), verify (exit 0) and a tampered proof (exit 144),
    generate-verifier (no placeholder left), prove -t rescue of
    scratch/recursive_r5/witness_0.json (equal to that fixture's proof_0.bin)
-   and verify -t rescue (exit 0).  The third inner proof of phase 10:
-   scripts/gen_inner_circuit.py writes the circuit (equal to the fixture's
-   file) and a third witness, witness_2.json; prove -t rescue of it on the
-   card and with --backend cpu in the same wave must give the same
-   proof_2.bin, and verify -t rescue must accept the card's;
+   and verify -t rescue (exit 0).  The inner proofs of phase 10 past the
+   fixture's pair: scripts/gen_inner_circuit.py writes the circuit (equal
+   to the fixture's file) and witness_2.json ... witness_4.json; prove -t
+   rescue of each on the card (the first wave after setup, since phase 10
+   waits for them) and with --backend cpu later must give the same
+   proof_<i>.bin, and verify -t rescue must accept the card's;
 8. cli at full width: the main path's circuit written as .r1cs and .wtns,
    then export-verification-key, prove and verify through the CLI: vk.bin
    and proof.bin must equal the main phase's bytes from the API.  No CLI
@@ -118,26 +122,34 @@ Phases, each printing a JSON line with its wall seconds:
    Beside them, export-recursive-verification-key -c 2 -i 2 of the
    two-proof circuit of scratch/recursive_r22 (2,307,899 gates, a 2^22
    domain): its recursive_vk.bin must equal that fixture's, made by the
-   JAX package; and export-recursive-verification-key -c 3 -i 2 (3,003,875
-   gates, still a 2^22 domain), the vk of phase 10's aggregate, which no
-   package had made before (phase 10 verifies with it).  Phases 7, 8 and 9
-   run at the same time, and so do the
-   calls of each that need no file of another: their seconds are wall
-   times of processes that share the host and the card;
-10. recursive path in this process, the reference's workload of three
-   proofs: prove_aggregation of scratch/recursive_r22/proof_{0,1}.bin (the
-   JAX package's) and phase 7's proof_2.bin at a 2^22 domain under
-   torch.profiler, with its gate count (3,003,875, from the port's log
+   JAX package; and export-recursive-verification-key -c 5 -i 2 (4,395,827
+   gates, a 2^23 domain), the vk of phase 10's aggregate, which no package
+   had made before (phase 10 verifies with it).  Phases 7, 8, 9 and 10
+   run at the same time, and so do the calls of each that need no file
+   of another: their seconds are wall times of processes that share the
+   host and the card;
+10. recursive path in this process, five proofs at a 2^23 domain, started
+   as soon as phase 7 has proved the inner proofs, beside the CLI
+   processes of phases 7-9 (its host stage times are taken under their
+   contention): prove_aggregation of scratch/recursive_r22/proof_{0,1}.bin
+   (the JAX package's) and phase 7's proof_2.bin ... proof_4.bin under
+   torch.profiler, with its gate count (4,395,827, from the port's log
    line), every kernel's launches counted from 0 (each must launch, the
    butterflies excepted), its stage times (the prover rounds x r1 ... x
-   r5), torch.cuda.max_memory_allocated(), the device's busy time and idle
-   share; verify_aggregation with phase 9's three-proof vk must accept it
-   and reject a copy with one flipped byte of the outer public input, and
+   r5), torch.cuda.max_memory_allocated() and the stage whose end first
+   saw it, the peak host RSS of this process (and phase 9's of its `-c 5`
+   export), the device's busy time and idle share, and the
+   transforms by size: every 2^25-point coset LDE and iNTT must take the
+   split path (backend_torch.SPLIT_NTT_MIN), at least one of each, and no
+   engine may run 2^25 points whole.  Once phase 9's five-proof vk is
+   there, verify_aggregation with it must accept the aggregate and
+   reject a copy with one flipped byte of the outer public input, and
    check_aggregation must accept it.  The aggregate is written as
    recursive_proof.bin: the CLI's recursive-verify must exit 0 on it and
-   144 on the flipped copy, and check-aggregation with the three-line
-   proof list 0.  Then the split coset transforms that
-   only this size reaches (backend_torch.SPLIT_NTT_MIN = 2^24): the
+   144 on the flipped copy, and check-aggregation with the five-line
+   proof list 0.  Then the device ms of one commitment at 2^22 and at
+   2^23 points, and the split coset transforms at their threshold
+   (backend_torch.SPLIT_NTT_MIN = 2^24, the LDE of a 2^22 domain): the
    2^24-point coset LDE of one 2^22-point vector, its coset iNTT and the
    2^24-point coset NTT of that LDE, split and monolithic (the threshold
    raised in this process), equal bit for bit, and the iNTT giving the
@@ -147,11 +159,11 @@ Phases, each printing a JSON line with its wall seconds:
    (solvm.py, through contract.py) on the card's proofs: phase 7's
    verifier.sol on its keccak proof.json / public.json, phase 9's
    recursive_verifier.sol on its recursive_proof.json, and the recursive
-   verifier of phase 9's three-proof vk, rendered for all six inputs of the
-   three proofs, on phase 10's aggregate; each must accept the proof and
-   reject every tampered copy.  The same verifier rendered for one proof's
-   two inputs, as generate-recursive-verifier -i 2 renders it, is run on
-   the aggregate too, and what it does recorded;
+   verifier of phase 9's five-proof vk, rendered for all ten inputs of
+   the five proofs, on phase 10's aggregate; each must accept the proof
+   and reject every tampered copy.  The same verifier rendered for one
+   proof's two inputs, as generate-recursive-verifier -i 2 renders it,
+   must revert "bad input count" on the aggregate;
 12. poseidon (phases 12-14 run after phase 10's split check and before
    phase 11, so that phases 1-11 measure as before): the Poseidon hash
    chain of scripts/bench_prove.py (poseidon_chain_circuit(20):
@@ -226,12 +238,19 @@ CROSS_LOG2 = 10         # phase 5 domain
 MAIN_LOG2 = 20          # phase 6 domain
 REFERENCE_LOG2 = 16     # phase 6's prove with host commitments
 ONE_PROOF_LOG2 = 21     # the aggregation circuit of one proof (phase 9)
-PAIR_LOG2 = 22          # the aggregation circuits of two and three proofs (phases 9, 10)
-AGG_PROOFS = 3          # the reference's recursive workload (phase 10)
-AGG_GATES = 3_003_875   # its aggregation circuit
-SRS_LOG2 = PAIR_LOG2    # the device SRS
+PAIR_LOG2 = 22          # the aggregation circuit of two proofs (phase 9)
+AGG_PROOFS = 5          # the recursive workload of phase 10: the first count at 2^23
+AGG_GATES = 4_395_827   # its aggregation circuit
+AGG_LOG2 = 23           # its domain
+INNER = range(2, AGG_PROOFS)    # gen_inner_circuit.py's witnesses past the fixture's pair
+SRS_LOG2 = AGG_LOG2     # the device SRS
 SPLIT_FACTOR = 4        # the prover's LDE factor: 2^24-point transforms at 2^22
 SRS_CHECK_LOG2 = 12     # key prefix held against srs.py byte for byte
+# sha256 of the first 2^22 points of the tau = 42 key (the G1 section of a
+# 2^22 key, its header left out): the points of the key `setup -p 22` makes
+# and of scratch/recursive_r22/srs_2pow22.key (tests/test_torch_fixed_base.py)
+SRS_PREFIX_LOG2 = 22
+SRS_PREFIX_SHA256 = "cc86d1ad413d102e53fb45a7c48de3da075d43ba11079c98bb0bd4e8661eff2b"
 POSEIDON_LOG2 = 20      # the Poseidon chain's domain (phases 12, 13)
 POSEIDON_HASHES = 454   # its chain length (scratch/bench_poseidon_2pow20.log)
 MESH_RANKS = 4          # gloo ranks sharing the card (phase 14)
@@ -406,17 +425,32 @@ def sass_counts(lib: str, kernels) -> dict:
     return out
 
 
-def cli(*args, cwd: str, expect: int = 0) -> float:
+def cli(*args, cwd: str, expect: int = 0, peak_rss: list = None) -> float:
     """`python3 -m plonkit_tpu_torch *args` in a subprocess (the default
     backend, the card); raises unless it exits with `expect`.  Returns its
-    wall seconds."""
+    wall seconds.  With `peak_rss`, sets peak_rss[0] to the largest
+    resident bytes of the process read from /proc/<pid>/statm every half
+    second until it exits (resource's RUSAGE_CHILDREN counts this process's
+    RSS at the fork, and not every kernel's /proc has VmHWM)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "plonkit_tpu_torch", *args], cwd=cwd,
-                          env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-                          text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, "-m", "plonkit_tpu_torch", *args], cwd=cwd,
+                            env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    while True:
+        try:
+            _, err = proc.communicate(timeout=0.5 if peak_rss is not None else 600)
+            break
+        except subprocess.TimeoutExpired:
+            if peak_rss is None or time.perf_counter() - t0 > 600:
+                proc.kill()
+                proc.communicate()
+                raise
+            with contextlib.suppress(OSError), open(f"/proc/{proc.pid}/statm") as f:
+                pages = int(f.read().split()[1])
+                peak_rss[0] = max(peak_rss[0], pages * os.sysconf("SC_PAGE_SIZE"))
     if proc.returncode != expect:
         raise AssertionError(f"plonkit_tpu_torch {' '.join(args)} exited {proc.returncode}, "
-                             f"expected {expect}:\n{proc.stderr[-4000:]}")
+                             f"expected {expect}:\n{err[-4000:]}")
     return time.perf_counter() - t0
 
 
@@ -430,7 +464,7 @@ def cli_together(*calls, cwd: str) -> dict:
 
 
 def phase_srs(tmp: str) -> str:
-    """`setup -p 22` through the CLI's entry point, in this process."""
+    """`setup -p 23` through the CLI's entry point, in this process."""
     import torch
     from plonkit_tpu_torch import cli as port_cli
     from plonkit_tpu_torch.curve import G2_GEN, g2_mul
@@ -449,11 +483,15 @@ def phase_srs(tmp: str) -> str:
     for p in dev_srs_g1(n, 42):
         write_g1(want, p)
     with open(key, "rb") as f:
-        head = f.read(8 + 64 * n)
+        f.seek(8)
+        prefix = f.read(64 << SRS_PREFIX_LOG2)
     handle = CrsHandle(key)
-    same = {"g1_prefix": head[8:] == want.getvalue(),
+    same = {"g1_prefix": prefix[:64 * n] == want.getvalue(),
+            f"sha256 of the 2^{SRS_PREFIX_LOG2} prefix":
+                hashlib.sha256(prefix).hexdigest() == SRS_PREFIX_SHA256,
             "count": handle.num_g1 == 1 << SRS_LOG2,
             "g2": handle.g2_monomial_bases == [G2_GEN, g2_mul(G2_GEN, 42)]}
+    del prefix
     emit({"phase": "srs", "points": 1 << SRS_LOG2, "route": "device (gpu/fixed_base.py)",
           "seconds": round(seconds, 3), "launches": launches,
           "identical_to_srs_py": same, "compared_points": n,
@@ -868,7 +906,7 @@ def _scan_rows() -> list:
     scans modulo p (library_ms null).  K13 on the total of a 2^20 product,
     and on edge values and random rows over both fields."""
     import torch
-    from plonkit_tpu_torch.gpu import field_kernels as fk, mont
+    from plonkit_tpu_torch.gpu import field_kernels as fk, fixed_base, mont
     from plonkit_tpu_torch.gpu.mont import FQ, FR, to_tensor
     rng = np.random.default_rng(SEED + 9)
     n = 1 << KERNEL_LOG2
@@ -892,11 +930,12 @@ def _scan_rows() -> list:
         mismatches=_mismatches((got,), (want,)), ms=time_ms(kern, 20), plain_ms=plain_ms,
         library_ms=None, **bound(n, "add"))
     del got, want
-    xq = to_tensor(_random_fr_rows(rng, 1 << SRS_LOG2, 0), DEVICE)
+    part = fixed_base.CRS_CHUNK_LOG2        # the points of an SRS part
+    xq = to_tensor(_random_fr_rows(rng, 1 << part, 0), DEVICE)
     kern, plain = forms(FQ, xq, "mul", False, False)
-    variants[f"Fq inclusive prefix product, 2^{SRS_LOG2} (an SRS part)"] = dict(
+    variants[f"Fq inclusive prefix product, 2^{part} (an SRS part)"] = dict(
         mismatches=_mismatches((kern(),), (plain(),)), ms=time_ms(kern, 5), plain_ms=None,
-        library_ms=None, **bound(1 << SRS_LOG2, "mul"))
+        library_ms=None, **bound(1 << part, "mul"))
     del xq
     ragged = {}
     for spec in (FR, FQ):
@@ -1469,29 +1508,53 @@ def _same_file(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
-def third_proof_path(tmp: str) -> str:
-    """Phase 7's rescue proof of gen_inner_circuit.py's witness_2.json."""
-    return os.path.join(tmp, "cli64", "proof_2.bin")
+def inner_proof_path(tmp: str, i: int) -> str:
+    """Phase 7's rescue proof of gen_inner_circuit.py's witness_<i>.json."""
+    return os.path.join(tmp, "cli64", f"proof_{i}.bin")
 
 
-def phase_cli(tmp: str) -> None:
-    """The base subcommands on the in-repo domain-64 circuit, on the card,
-    and the third inner proof of phase 10 (scripts/gen_inner_circuit.py's
-    witness_2.json, proved with -t rescue on the card and on the CPU).
-    Calls that do not need each other's files run at once."""
+def _inner_prove(tmp: str, i: int, backend: str) -> list:
+    """The CLI's arguments for the rescue prove of witness_<i>.json on
+    `backend`: the card's into inner_proof_path, the CPU's beside it."""
+    gen = os.path.join(tmp, "inner")
+    out = f"proof_{i}" if backend == "cuda" else f"proof_{i}_cpu"
+    return ["--backend", backend, "prove", "-m", "setup.key",
+            "-c", os.path.join(gen, "circuit.r1cs.json"),
+            "-w", os.path.join(gen, f"witness_{i}.json"), "-t", "rescue",
+            "-p", out + ".bin", "-j", out + ".json", "-i", out.replace("proof", "public") + ".json"]
+
+
+def phase_inner_proofs(tmp: str) -> dict:
+    """Phase 7's first waves: scripts/gen_inner_circuit.py writes the
+    circuit and AGG_PROOFS witnesses, setup -p 10 and analyse run, then the
+    rescue proofs of witness_2 ... witness_4 on the card, the inner proofs
+    that phase 10 aggregates beside the fixture's pair.  Returns the wall
+    seconds of each call."""
     t_all = time.perf_counter()
     d = os.path.join(tmp, "cli64")
     os.makedirs(d)
-    circuit = os.path.join(FIXTURES, "circuit.r1cs.json")
-    witness = os.path.join(FIXTURES, "witness_0.json")
-    gen = os.path.join(tmp, "inner3")
+    gen = os.path.join(tmp, "inner")
     os.makedirs(gen)
     subprocess.run([sys.executable, os.path.join(REPO, "scripts", "gen_inner_circuit.py"), gen,
                     str(AGG_PROOFS)], check=True, capture_output=True, timeout=120)
-    third = ["prove", "-m", "setup.key", "-c", os.path.join(gen, "circuit.r1cs.json"),
-             "-w", os.path.join(gen, "witness_2.json"), "-t", "rescue"]
     s = cli_together(("setup", ["setup", "-p", "10", "-m", "setup.key"]),
-                     ("analyse", ["analyse", "-c", circuit, "-o", "analyse.json"]), cwd=d)
+                     ("analyse", ["analyse", "-c", os.path.join(FIXTURES, "circuit.r1cs.json"),
+                                  "-o", "analyse.json"]), cwd=d)
+    s.update(cli_together(*[(f"prove -t rescue witness_{i}", _inner_prove(tmp, i, "cuda"))
+                            for i in INNER], cwd=d))
+    s["inner proofs"] = time.perf_counter() - t_all
+    return s
+
+
+def phase_cli(tmp: str, s: dict) -> None:
+    """The base subcommands on the in-repo domain-64 circuit, on the card,
+    after phase_inner_proofs (whose seconds `s` holds); the inner proofs
+    again on the CPU, each equal to the card's.  Calls that do not need
+    each other's files run at once."""
+    t_all = time.perf_counter()
+    d = os.path.join(tmp, "cli64")
+    circuit = os.path.join(FIXTURES, "circuit.r1cs.json")
+    witness = os.path.join(FIXTURES, "witness_0.json")
     s.update(cli_together(
         ("export-verification-key", ["export-verification-key", "-m", "setup.key",
                                      "-c", circuit, "-v", "vk.bin"]),
@@ -1500,7 +1563,9 @@ def phase_cli(tmp: str) -> None:
                            "-c", circuit]),
         ("--backend mesh prove", ["--backend", "mesh", "prove", "-m", "setup.key", "-c", circuit,
                                   "-w", witness, "-p", "proof_mesh.bin", "-j", "proof_mesh.json",
-                                  "-i", "public_mesh.json"]), cwd=d))
+                                  "-i", "public_mesh.json"]),
+        *[(f"--backend cpu prove -t rescue witness_{i}", _inner_prove(tmp, i, "cpu"))
+          for i in INNER], cwd=d))
     with open(os.path.join(d, "proof.bin"), "rb") as f:
         blob = bytearray(f.read())
     blob[17] ^= 1                                   # a bit of the public input
@@ -1516,16 +1581,11 @@ def phase_cli(tmp: str) -> None:
         ("prove -t rescue", ["prove", "-m", "setup.key", "-c", circuit, "-w",
                              os.path.join(AGG_FIXTURES, "witness_0.json"), "-t", "rescue",
                              "-p", "proof_rescue.bin", "-j", "proof_rescue.json",
-                             "-i", "public_rescue.json"]),
-        ("prove -t rescue witness_2", third + ["-p", "proof_2.bin", "-j", "proof_2.json",
-                                               "-i", "public_2.json"]),
-        ("--backend cpu prove -t rescue witness_2", ["--backend", "cpu"] + third + [
-            "-p", "proof_2_cpu.bin", "-j", "proof_2_cpu.json", "-i", "public_2_cpu.json"]),
-        cwd=d))
-    s.update(cli_together(("verify -t rescue", ["verify", "-p", "proof_rescue.bin", "-v",
-                                                "vk.bin", "-t", "rescue"]),
-                          ("verify -t rescue proof_2", ["verify", "-p", "proof_2.bin", "-v",
-                                                        "vk.bin", "-t", "rescue"]), cwd=d))
+                             "-i", "public_rescue.json"]), cwd=d))
+    s.update(cli_together(
+        ("verify -t rescue", ["verify", "-p", "proof_rescue.bin", "-v", "vk.bin", "-t", "rescue"]),
+        *[(f"verify -t rescue proof_{i}", ["verify", "-p", f"proof_{i}.bin", "-v", "vk.bin",
+                                           "-t", "rescue"]) for i in INNER], cwd=d))
     with open(os.path.join(d, "analyse.json")) as f:
         stats = json.load(f)
     with open(os.path.join(d, "verifier.sol")) as f:
@@ -1539,13 +1599,14 @@ def phase_cli(tmp: str) -> None:
             "prove -t rescue = fixture proof_0.bin": _same_file(
                 os.path.join(d, "proof_rescue.bin"), os.path.join(AGG_FIXTURES, "proof_0.bin")),
             "gen_inner_circuit.py circuit = fixture circuit": _same_file(
-                os.path.join(gen, "circuit.r1cs.json"), circuit),
-            "proof_2.bin card = cpu": _same_file(third_proof_path(tmp),
-                                                 os.path.join(d, "proof_2_cpu.bin"))}
+                os.path.join(tmp, "inner", "circuit.r1cs.json"), circuit)}
+    for i in INNER:
+        same[f"proof_{i}.bin card = cpu"] = _same_file(inner_proof_path(tmp, i),
+                                                      os.path.join(d, f"proof_{i}_cpu.bin"))
     emit({"phase": "cli", "domain": 64, "identical": same, "num_gates": stats["num_gates"],
           "contract_placeholders_left": sol.count("{{"),
           "seconds": {k: round(v, 3) for k, v in s.items()},
-          "total_s": round(time.perf_counter() - t_all, 3)})
+          "total_s": round(s["inner proofs"] + time.perf_counter() - t_all, 3)})
     if not all(same.values()) or "{{" in sol:
         raise AssertionError(f"CLI outputs differ: {same}, placeholders {sol.count('{{')}")
 
@@ -1661,38 +1722,42 @@ def phase_recursive_vk_pair(tmp: str, key: str) -> str:
     return path
 
 
-def phase_recursive_vk_three(tmp: str, key: str) -> str:
-    """export-recursive-verification-key -c 3 -i 2 of scratch/recursive_r22's
-    circuit, a CLI process: the vk of phase 10's three-proof aggregate (no
-    reference file: neither package had made one).  Returns its path."""
+def phase_recursive_vk_agg(tmp: str, key: str) -> str:
+    """export-recursive-verification-key -c 5 -i 2 of scratch/recursive_r22's
+    circuit, a CLI process: the vk of phase 10's five-proof aggregate at a
+    2^23 domain (no reference file: neither package had made one).
+    Returns its path."""
     from plonkit_tpu_torch.plonk.extended import VerificationKey2
-    d = os.path.join(tmp, "recursive_three")
+    d = os.path.join(tmp, "recursive_agg")
     os.makedirs(d)
+    peak_rss = [0]
     seconds = cli("export-recursive-verification-key", "-c", str(AGG_PROOFS), "-i", "2",
-                  "-m", key, "-o", os.path.join(FIXTURES, "vk.bin"), cwd=d)
+                  "-m", key, "-o", os.path.join(FIXTURES, "vk.bin"), cwd=d, peak_rss=peak_rss)
     path = os.path.join(d, "recursive_vk.bin")
     rec_vk = VerificationKey2.load(path)
-    emit({"phase": "recursive_vk_three", "proofs": AGG_PROOFS, "domain": rec_vk.n + 1,
-          "num_inputs": rec_vk.num_inputs, "seconds": round(seconds, 3)})
-    if rec_vk.n + 1 != 1 << PAIR_LOG2 or rec_vk.num_inputs != 1:
-        raise AssertionError(f"the three-proof recursive vk: n {rec_vk.n}, "
+    emit({"phase": "recursive_vk_agg", "proofs": AGG_PROOFS, "domain": rec_vk.n + 1,
+          "num_inputs": rec_vk.num_inputs, "seconds": round(seconds, 3),
+          "peak_rss_bytes": peak_rss[0]})
+    if rec_vk.n + 1 != 1 << AGG_LOG2 or rec_vk.num_inputs != 1:
+        raise AssertionError(f"the {AGG_PROOFS}-proof recursive vk: n {rec_vk.n}, "
                              f"{rec_vk.num_inputs} inputs")
     return path
 
 
 @contextlib.contextmanager
-def _gate_count(found: list):
-    """Append the gate count of every aggregation circuit the port logs
-    ("aggregation circuit: %d gates, ...") to `found`."""
+def _port_log(found: list):
+    """Append (message, torch.cuda.max_memory_allocated() then) for every
+    INFO record of the port's logger (the aggregation circuit's gate count,
+    each stage's end) to `found`: the first record that sees the final
+    peak ends the stage that reached it."""
     import logging
+    import torch
 
-    class Gates(logging.Handler):
+    class Found(logging.Handler):
         def emit(self, record):
-            m = re.match(r"aggregation circuit: (\d+) gates", record.getMessage())
-            if m:
-                found.append(int(m.group(1)))
+            found.append((record.getMessage(), torch.cuda.max_memory_allocated()))
 
-    logger, handler = logging.getLogger("plonkit_tpu_torch"), Gates()
+    logger, handler = logging.getLogger("plonkit_tpu_torch"), Found()
     level = logger.level
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
@@ -1703,16 +1768,82 @@ def _gate_count(found: list):
         logger.setLevel(level)
 
 
-def phase_recursive(tmp: str, key: str, rec_vk_path: str):
-    """prove_aggregation of three proofs at a 2^22 domain in this process
+@contextlib.contextmanager
+def _transforms_by_size(split: dict, engine: dict):
+    """Count TorchBackend's transforms for the block: each split coset
+    transform into `split` and each call of an NTT engine (a split
+    transform's parts and every monolithic transform) into `engine`, by
+    "op 2^k" with k the log2 of the points it computes."""
+    from plonkit_tpu_torch import backend_torch
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+
+    def label(op, points):
+        return f"{op} 2^{points.bit_length() - 1}"
+
+    def counted_engine(op, n, device):
+        engine[label(op, n)] = engine.get(label(op, n), 0) + 1
+        return real_engine(op, n, device)
+
+    def counted(op, real):
+        def run(self, v, factor, shift):
+            points = len(v) * (factor if op == "coset_lde" else 1)
+            split[label(op, points)] = split.get(label(op, points), 0) + 1
+            return real(self, v, factor, shift)
+        return run
+
+    real_engine = backend_torch._engine
+    reals = {op: getattr(TorchBackend, f"_{op}_split")
+             for op in ("coset_ntt", "coset_lde", "coset_intt")}
+    backend_torch._engine = counted_engine
+    for op, real in reals.items():
+        setattr(TorchBackend, f"_{op}_split", counted(op, real))
+    try:
+        yield
+    finally:
+        backend_torch._engine = real_engine
+        for op, real in reals.items():
+            setattr(TorchBackend, f"_{op}_split", real)
+
+
+def _max_rss_bytes() -> int:
+    """This process's peak RSS in bytes (ru_maxrss: kilobytes on Linux)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _commit_ms(key: str) -> dict:
+    """Device ms a commitment (gpu/msm.py over the SRS prefix, one random
+    vector) at 2^22 and 2^23 points: CUDA events over 3 msm_vec calls."""
+    import torch
+    from plonkit_tpu_torch.backend_torch import TorchBackend
+    from plonkit_tpu_torch.gpu.mont import to_tensor
+    from plonkit_tpu_torch.serialization import CrsHandle
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for k in (PAIR_LOG2, AGG_LOG2):
+        ctx = TorchBackend(DEVICE).device_msm_context(CrsHandle(key), 1 << k)
+        v = to_tensor(_random_fr_rows(rng, 1 << k), DEVICE)
+        out[f"2^{k}"] = time_ms(lambda: ctx.msm_vec(v), 3)
+        del ctx, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_recursive(tmp: str, key: str, rec_vk_path):
+    """prove_aggregation of five proofs at a 2^23 domain in this process
     under torch.profiler (scratch/recursive_r22's proof_0.bin and
-    proof_1.bin, made by the JAX package, and phase 7's proof_2.bin): the
-    gate count, launches of every kernel from 0, stage times, peak device
-    memory, device busy time and idle share; then verify_aggregation with
-    phase 9's three-proof vk (and a tampered copy) and check_aggregation;
-    then recursive_proof.bin through the CLI: recursive-verify (0, and 144
-    on a tampered copy) and check-aggregation with the three-line proof
-    list.  Returns the launches and the aggregate."""
+    proof_1.bin, made by the JAX package, and phase 7's proof_2.bin ...
+    proof_4.bin), while the CLI processes of phases 7-9 run: the gate
+    count, launches of every kernel from 0, stage times, peak device
+    memory and the stage that reached it, peak host RSS, device busy time
+    and idle share, and the transforms by size: every 2^25-point coset
+    transform must take the split path (four 2^23-point parts), none run
+    whole.  Then, once phase 9's five-proof vk (the future `rec_vk_path`)
+    is there, verify_aggregation with it (and a tampered copy) and
+    check_aggregation; recursive_proof.bin through the CLI:
+    recursive-verify (0, and 144 on a tampered copy) and check-aggregation
+    with the five-line proof list; and the device ms a commitment at 2^22
+    and 2^23.  Returns the launches and the aggregate."""
     import torch
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.backend_torch import TorchBackend
@@ -1721,7 +1852,8 @@ def phase_recursive(tmp: str, key: str, rec_vk_path: str):
                                                          prove_aggregation, verify_aggregation)
     from plonkit_tpu_torch.serialization import CrsHandle, Proof, VerificationKey
     vk = VerificationKey.load(os.path.join(FIXTURES, "vk.bin"))
-    paths = [os.path.join(FIXTURES, f"proof_{i}.bin") for i in (0, 1)] + [third_proof_path(tmp)]
+    paths = ([os.path.join(FIXTURES, f"proof_{i}.bin") for i in (0, 1)]
+             + [inner_proof_path(tmp, i) for i in INNER])
     proofs = [Proof.load(p) for p in paths]
     backend = TorchBackend(DEVICE)
     crs = CrsHandle(key)
@@ -1729,17 +1861,30 @@ def phase_recursive(tmp: str, key: str, rec_vk_path: str):
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     profiling.reset()
-    gates = []
+    logged, split, engine = [], {}, {}
+    rss_before = _max_rss_bytes()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with _gate_count(gates), torch.profiler.profile(activities=acts) as prof:
+    with _port_log(logged), _transforms_by_size(split, engine), \
+            torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         agg = prove_aggregation(crs, proofs, vk, backend=backend)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    rss = _max_rss_bytes()
     stages = dict(profiling.last_timings)
     kernels, busy, by_kernel = device_activity(prof)
+    events = len(kernels)
+    del prof, kernels
+    gates = [int(m.group(1)) for m in map(re.compile(r"aggregation circuit: (\d+) gates").match,
+                                           (ln for ln, _ in logged)) if m]
+    steps = [(" ".join(ln.split()), at) for ln, at in logged if ln.startswith("[stage] ")]
+    reached = next((i for i, (_, at) in enumerate(steps) if at == peak), None)
+    whole = {k: c for k, c in engine.items() if int(k.rsplit("^", 1)[1]) >= AGG_LOG2 + 2}
+    t_vk = time.perf_counter()
+    rec_vk_path = rec_vk_path.result()
+    vk_wait = time.perf_counter() - t_vk
     t0 = time.perf_counter()
     rec_vk = VerificationKey2.load(rec_vk_path)
     d = os.path.dirname(rec_vk_path)
@@ -1758,26 +1903,37 @@ def phase_recursive(tmp: str, key: str, rec_vk_path: str):
             ("recursive-verify tampered", ["recursive-verify", "-p", "tampered.bin"], 400 % 256),
             ("check-aggregation", ["check-aggregation", "-o", "old_proof_list.txt",
                                    "-v", os.path.join(FIXTURES, "vk.bin")]), cwd=d)
+        lde, intt = f"coset_lde 2^{AGG_LOG2 + 2}", f"coset_intt 2^{AGG_LOG2 + 2}"
         checks = {"num_gates": gates == [AGG_GATES],
                   "verify_aggregation": verify_aggregation(rec_vk, agg, vk),
                   "tampered_rejected": not verify_aggregation(rec_vk, tampered, vk),
                   "check_aggregation": check_aggregation(vk, proofs, agg),
-                  "domain_2pow22": agg.proof.n + 1 == 1 << PAIR_LOG2,
-                  "individual_inputs": len(agg.individual_inputs) == AGG_PROOFS * vk.num_inputs}
+                  f"domain_2pow{AGG_LOG2}": agg.proof.n + 1 == 1 << AGG_LOG2,
+                  "individual_inputs": len(agg.individual_inputs) == AGG_PROOFS * vk.num_inputs,
+                  f"split {lde} and {intt}": split.get(lde, 0) > 0 and split.get(intt, 0) > 0,
+                  "no whole transform of 2^25 points or more": not whole}
         check_s = time.perf_counter() - t0
         cli_s = cli_run.result()
+    commit_ms = _commit_ms(key)
     emit({"phase": "recursive", "proofs": len(proofs), "num_gates": gates[-1] if gates else None,
           "domain": agg.proof.n + 1, "n": agg.proof.n, "checks": checks,
-          "check_s": round(check_s, 3),
+          "split_transforms": split, "engine_transforms": engine,
+          "vk_wait_s": round(vk_wait, 3), "check_s": round(check_s, 3),
           "cli_exit_codes": {"recursive-verify": 0, "recursive-verify tampered": 400 % 256,
                              "check-aggregation": 0},
           "cli_s": {k: round(v, 3) for k, v in cli_s.items()},
           "prove_aggregation_s": wall, "stages_s": {k: round(v, 3) for k, v in stages.items()},
           "launches": launches, "max_memory_allocated_bytes": peak,
-          "device_events": len(kernels), "device_busy_s": busy,
-          "device_idle_share": 1 - busy / wall, "by_kernel": by_kernel})
+          "peak_by_step": [f"{ln}: peak {at}" for ln, at in steps],
+          "peak_reached_after": steps[reached - 1][0] if reached else None,
+          "peak_reached_by": steps[reached][0] if reached is not None else None,
+          "max_rss_bytes": {"before the prove": rss_before, "after the prove": rss},
+          "device_events": events,
+          "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+          "commit_ms": commit_ms, "by_kernel": by_kernel})
     if not all(checks.values()):
-        raise AssertionError(f"the {AGG_PROOFS}-proof aggregate at 2^{PAIR_LOG2} fails: {checks}")
+        raise AssertionError(f"the {AGG_PROOFS}-proof aggregate at 2^{AGG_LOG2} fails: {checks}; "
+                             f"split {split}, engine {engine}")
     # on the card the tensor cores take every transform of 512 points or
     # more: the butterflies, left with the smaller ones, may idle
     idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES]
@@ -1891,7 +2047,9 @@ def phase_ntt_engines() -> None:
 def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
     """The rendered verifiers in the port's interpreter on the card's
     proofs: each must accept its proof and reject every tampered copy
-    (contract.py raises otherwise)."""
+    (contract.py raises otherwise).  The recursive verifier rendered for
+    one proof's inputs, as generate-recursive-verifier -i 2 renders it,
+    must revert "bad input count" on the five-proof aggregate."""
     from plonkit_tpu_torch import contract, solvm
     from plonkit_tpu_torch.plonk.extended import VerificationKey2
     from plonkit_tpu_torch.serialization import VerificationKey
@@ -1901,12 +2059,12 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
     os.makedirs(d)
     vk = VerificationKey.load(os.path.join(FIXTURES, "vk.bin"))
     rec_vk = VerificationKey2.load(rec_vk_path)
-    # INDIVIDUAL_INPUTS is the count of every proof's inputs together: 6
-    three_sol = os.path.join(d, "recursive_verifier.sol")
-    with open(three_sol, "w") as f:
+    # INDIVIDUAL_INPUTS is the count of every proof's inputs together: 10
+    agg_sol = os.path.join(d, "recursive_verifier.sol")
+    with open(agg_sol, "w") as f:
         f.write(render_recursive_verification_key(vk, rec_vk, len(agg.individual_inputs)))
-    three_json = os.path.join(d, "recursive_proof.json")
-    with open(three_json, "w") as f:
+    agg_json = os.path.join(d, "recursive_proof.json")
+    with open(agg_json, "w") as f:
         json.dump(agg.solidity_json(), f, indent=1)
     cli64, rec = os.path.join(tmp, "cli64"), os.path.join(tmp, "recursive")
     jobs = {
@@ -1916,8 +2074,8 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
         "recursive_verifier.sol, one proof at 2^21 (phase 9)": lambda: contract.run_recursive(
             os.path.join(rec, "recursive_verifier.sol"),
             os.path.join(rec, "recursive_proof.json")),
-        f"recursive verifier, {AGG_PROOFS} proofs at 2^22 (phase 10)": lambda:
-            contract.run_recursive(three_sol, three_json),
+        f"recursive verifier, {AGG_PROOFS} proofs at 2^{AGG_LOG2} (phase 10)": lambda:
+            contract.run_recursive(agg_sol, agg_json),
     }
     found, seconds = {}, {}
     for name, job in jobs.items():
@@ -1925,7 +2083,7 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
         found[name] = job()
         seconds[name] = round(time.perf_counter() - t0, 3)
     # generate-recursive-verifier -i 2 renders one proof's input count: a
-    # contract that cannot take the three proofs' 6 inputs
+    # contract that cannot take the five proofs' 10 inputs
     per_proof = solvm.Interpreter(render_recursive_verification_key(vk, rec_vk, vk.num_inputs))
     try:
         per_proof_out = "returned %d" % per_proof.call(
@@ -1934,8 +2092,10 @@ def phase_contract(tmp: str, agg, rec_vk_path: str) -> None:
         per_proof_out = f"reverted: {e}"
     emit({"phase": "contract", "runs": found, "seconds": seconds,
           "individual_inputs": len(agg.individual_inputs),
-          "three_with_one_proof_input_count": per_proof_out,
+          "aggregate_with_one_proof_input_count": per_proof_out,
           "total_s": round(time.perf_counter() - t_all, 3)})
+    if "bad input count" not in per_proof_out:
+        raise AssertionError(f"the one-proof verifier on {AGG_PROOFS} proofs: {per_proof_out}")
 
 
 def merged_busy_us(intervals) -> float:
@@ -2018,20 +2178,20 @@ def main() -> int:
         launches, launches_pease, circuit, vk_bytes, proof_bytes = phase_main(key)
         torch.cuda.empty_cache()
         built = _build_snapshot()
-        with ThreadPoolExecutor(4) as pool:     # phases 7, 8 and 9 at once
+        # phases 7, 8 and 9 in CLI processes; once phase 7 has proved the
+        # inner proofs, phase 10 proves their aggregate in this process
+        with ThreadPoolExecutor(5) as pool:
             full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes)
             rec = pool.submit(phase_recursive_cli, tmp, key)
             pair_vk = pool.submit(phase_recursive_vk_pair, tmp, key)
-            three_vk = pool.submit(phase_recursive_vk_three, tmp, key)
-            phase_cli(tmp)
-            full.result()
-            rec.result()
-            pair_vk.result()
-            rec_vk_path = three_vk.result()
+            agg_vk = pool.submit(phase_recursive_vk_agg, tmp, key)
+            cli64 = pool.submit(phase_cli, tmp, phase_inner_proofs(tmp))
+            launches_recursive, agg = phase_recursive(tmp, key, agg_vk)
+            for phase in (cli64, full, rec, pair_vk):
+                phase.result()
         if _build_snapshot() != built:
             raise AssertionError("a CLI process rebuilt a kernel library")
         del circuit
-        launches_recursive, agg = phase_recursive(tmp, key, rec_vk_path)
         torch.cuda.empty_cache()
         phase_split_ntt()
         torch.cuda.empty_cache()
@@ -2042,7 +2202,7 @@ def main() -> int:
         del pos_setup, pos_circuit
         torch.cuda.empty_cache()
         phase_mesh_ranks(tmp, key)
-        phase_contract(tmp, agg, rec_vk_path)
+        phase_contract(tmp, agg, agg_vk.result())
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["launches_pease_prove"] = launches_pease[r["name"]]

@@ -4,7 +4,12 @@ tau = 42 SRS at 2^8 equals srs.py's points and the first 2^8 points of the
 in-repo key, and its key file (serialization.save_crs_g1_limbs) equals the
 one Crs.save writes; batch_scalar_mul_base on seeded scalars, 0, 1 and
 r - 1 included, equals the JAX package's curve.g1_mul; to_affine_batch
-maps infinity to infinity."""
+maps infinity to infinity; chip_smoke.py's digest of the 2^22-point
+prefix of its key is that of the in-repo key's points."""
+
+import hashlib
+import os
+import runpy
 
 import numpy as np
 import pytest
@@ -86,3 +91,16 @@ def test_to_affine_batch_maps_infinity_to_infinity():
     assert not bool(x[1].any()) and not bool(y[1].any())
     assert points(*fixed_base.affine_batch_to_limbs((x, y, flags))) == \
         [ref_g1_mul(REF_G1_GEN, 5), None, ref_g1_mul(REF_G1_GEN, 7)]
+
+
+def test_smoke_srs_prefix_digest_is_the_keys():
+    """chip_smoke.py holds the first 2^22 points of the 2^23 key it makes on
+    the card against SRS_PREFIX_SHA256: the digest of the points of the
+    in-repo 2^22 tau = 42 key, its header left out."""
+    smoke = runpy.run_path(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py"))
+    with open(KEY, "rb") as f:
+        count = int.from_bytes(f.read(8), "big")
+        digest = hashlib.sha256(f.read(64 * count)).hexdigest()
+    assert count == 1 << smoke["SRS_PREFIX_LOG2"]
+    assert digest == smoke["SRS_PREFIX_SHA256"]

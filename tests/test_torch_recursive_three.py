@@ -1,15 +1,19 @@
-"""The third inner proof of the reference's three-proof recursive workload,
-on the CPU:
+"""The inner proofs past the fixture's pair, on the CPU: the third of the
+reference's three-proof recursive workload and the third to fifth of the
+five-proof one:
 
-- scripts/gen_inner_circuit.py DIR 3 writes the circuit and the two
+- scripts/gen_inner_circuit.py DIR 5 writes the circuit and the two
   witnesses of the in-repo fixture scratch/recursive_r22 byte for byte, and
-  a third witness that differs from both;
-- the port's `prove(..., "rescue")` of that witness gives the bytes of the
-  JAX package's prove of it (HostBackend, the same first 2^10 points of the
-  tau = 42 key, each package reading the key and the files with its own
-  loaders); both packages' verifiers accept it and reject a tampered copy.
+  witness_2, witness_3 and witness_4, whose public inputs differ from
+  every other witness's;
+- the port's `prove(..., "rescue")` of witness_2, witness_3 and witness_4
+  gives the bytes of the JAX package's prove of it (HostBackend, the same
+  first 2^10 points of the tau = 42 key, each package reading the key and
+  the files with its own loaders); both packages' verifiers accept it and
+  reject a tampered copy.
 
-tests/test_torch_recursive.py aggregates it with the fixture's two proofs.
+tests/test_torch_recursive.py aggregates the third with the fixture's two
+proofs, tests/test_torch_recursive_five.py all three.
 """
 
 import io
@@ -40,7 +44,8 @@ from test_torch_prove import KEY, ref_crs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R22 = os.path.join(REPO, "scratch", "recursive_r22")
 GENERATOR = os.path.join(REPO, "scripts", "gen_inner_circuit.py")
-PROOFS = 3
+PROOFS = 5
+INNER = (2, 3, 4)           # the witnesses past the fixture's pair
 
 
 def generate(directory) -> str:
@@ -83,11 +88,14 @@ def test_generator_writes_the_fixture(generated, name):
     assert _read(os.path.join(generated, name)) == _read(os.path.join(R22, name))
 
 
-def test_third_witness_is_distinct(generated):
-    with open(os.path.join(generated, "witness_2.json")) as f:
+@pytest.mark.parametrize("index", INNER, ids=[f"witness_{i}" for i in INNER])
+def test_third_witness_is_distinct(generated, index):
+    with open(os.path.join(generated, f"witness_{index}.json")) as f:
         third = json.load(f)
-    for i in (0, 1):
-        with open(os.path.join(R22, f"witness_{i}.json")) as f:
+    for i in range(PROOFS):
+        if i == index:
+            continue
+        with open(os.path.join(generated, f"witness_{i}.json")) as f:
             other = json.load(f)
         assert len(third) == len(other)
         assert third[0] == other[0] == "1"
@@ -95,13 +103,19 @@ def test_third_witness_is_distinct(generated):
 
 
 @pytest.fixture(scope="module")
-def third(generated):
-    """(the port's proof, the JAX package's proof) of witness_2.json."""
-    port = port_rescue_proof(generated, 2)
+def ref_setup(generated):
+    """(the JAX package's setup of the circuit, its r1cs)."""
     rc = RefCircuit(r1cs=ref_load_r1cs(os.path.join(generated, "circuit.r1cs.json")))
-    ref_setup = RefSetupForProver(rc, ref_crs(KEY, 1 << 10), backend=HostBackend())
-    ref = ref_setup.prove(RefCircuit(r1cs=rc.r1cs, witness=ref_load_witness(
-        os.path.join(generated, "witness_2.json"))), "rescue")
+    return RefSetupForProver(rc, ref_crs(KEY, 1 << 10), backend=HostBackend()), rc.r1cs
+
+
+@pytest.fixture(scope="module", params=INNER, ids=[f"witness_{i}" for i in INNER])
+def third(request, generated, ref_setup):
+    """(the port's proof, the JAX package's proof) of witness_<i>.json."""
+    setup, r1cs = ref_setup
+    port = port_rescue_proof(generated, request.param)
+    ref = setup.prove(RefCircuit(r1cs=r1cs, witness=ref_load_witness(
+        os.path.join(generated, f"witness_{request.param}.json"))), "rescue")
     return port, ref
 
 
