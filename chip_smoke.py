@@ -62,8 +62,15 @@ Phases, each printing a JSON line with its wall seconds:
    at ragged n with zeros at the first row, the last, every third and
    everywhere, Fr and Fq), x * x^-1 = 1, and no device-to-host copy in
    torch.profiler's record of one batch_inverse and one grand_product
-   call.  Times are CUDA events after a sleep kernel that holds the card
-   while the host queues the calls;
+   call; K14 g1_butterfly and K15 g1_scale (the group NTT,
+   gpu/group_ntt.py) at the main path's shapes, on SRS points summed in
+   pairs (Z != 1): K14 on stage 0 of a 2^20-point inverse transform (2^19
+   butterflies, w = 1 in lane 0; lo, hi or both at infinity, lo = [w]hi
+   and lo = -[w]hi planted in lanes the check reads), K15 by 1/2^20 on the
+   2^20 points; the output of the launch kept is held against the plain
+   version on every 128th (K14) or 256th (K15) lane, 2^12 lanes each, the
+   planted ones among them.  Times are CUDA events after a sleep kernel
+   that holds the card while the host queues the calls;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
@@ -92,11 +99,19 @@ Phases, each printing a JSON line with its wall seconds:
    setup makes them again with every commitment in the host Pippenger (a
    TorchBackend subclass defined here): the bytes must be identical.  A
    last prove on the 2^20 device setup runs under torch.profiler: device time by
-   kernel, and the device's busy time and idle share over its wall time;
+   kernel, and the device's busy time and idle share over its wall time.
+   Then the Lagrange form of the 2^23 key at the main domain, made on the
+   card by api.crs_lagrange_form under torch.profiler (wall and device
+   seconds; 20 K14 launches, one K15, and K12, K13 and K1, which must
+   launch), written as a key file (its sha256 for phase 8), and one prove
+   with it from a copy of the setup: its proof.bin must be the first
+   proof's;
 7. cli: `python3 -m plonkit_tpu_torch` in subprocesses, on the card, on the
-   in-repo circuit scratch/recursive_r22 (domain 64): setup -p 10, analyse,
+   in-repo circuit scratch/recursive_r22 (domain 64): setup -p 10 (on the
+   card: its points must be the first 2^10 of phase 2's key), analyse,
    export-verification-key (its vk.bin must equal the fixture's, made by the
-   JAX package), prove (keccak), dump-lagrange and prove -l (the same
+   JAX package), prove (keccak), dump-lagrange (the card's lagrange.key must
+   equal `--backend cpu dump-lagrange`'s) and prove -l (the same
    proof.bin), verify (exit 0) and a tampered proof (exit 144),
    generate-verifier (no placeholder left), prove -t rescue of
    scratch/recursive_r5/witness_0.json (equal to that fixture's proof_0.bin)
@@ -104,12 +119,17 @@ Phases, each printing a JSON line with its wall seconds:
    fixture's pair: scripts/gen_inner_circuit.py writes the circuit (equal
    to the fixture's file) and witness_2.json ... witness_4.json; prove -t
    rescue of each on the card (the first wave after setup, since phase 10
-   waits for them) and with --backend cpu later must give the same
-   proof_<i>.bin, and verify -t rescue must accept the card's;
+   waits for them) and with --backend cpu must give the same
+   proof_<i>.bin, and verify -t rescue must accept the card's.  The calls
+   that use no card (those CPU proves and the CPU dump-lagrange, over the
+   first points of phase 2's key) start as soon as that key exists and
+   run beside phases 3-6, out of the wave of phases 7-10;
 8. cli at full width: the main path's circuit written as .r1cs and .wtns,
-   then export-verification-key, prove and verify through the CLI: vk.bin
-   and proof.bin must equal the main phase's bytes from the API.  No CLI
-   process may rebuild a kernel library;
+   then export-verification-key, prove and dump-lagrange at once, then
+   prove -l and verify through the CLI: vk.bin, proof.bin and prove -l's
+   proof.bin must equal the main phase's bytes from the API, lagrange.key
+   the sha256 of phase 6's key.  No CLI process may rebuild a kernel
+   library;
 9. recursive CLI on scratch/recursive_r5 (one rescue proof of the domain-64
    circuit; the JAX package's aggregate at 2^21): the 5 recursive
    subcommands, each once, over the key:
@@ -210,7 +230,8 @@ or more, and every byte check above holds it.
 
 Then the kernels line (each row with its launches on the main path of
 phase 6, in phase 6's pease prove, on the recursive path of phase 10, in
-the device SRS of phase 2 and on the mesh path of phase 13), the card line, and as the last line
+the device SRS of phase 2, on the mesh path of phase 13 and in phase 6's
+Lagrange dump), the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is not 0
 and no result line is printed.  Without a CUDA device it stops at once.
 """
@@ -300,10 +321,15 @@ SOURCES = {
     # pallas_kernels.py:173 batch_inverse); the Fermat inverse of the total
     "K12 field_scan": ("plonkit_tpu_torch/csrc/scan.cu", "plonkit_tpu/backend_jax.py:145"),
     "K13 field_inverse": ("plonkit_tpu_torch/csrc/scan.cu", "plonkit_tpu/tpu/mont.py:298"),
+    # no TPU kernel: the JAX package's host python group NTT (its
+    # butterflies' g1_mul, then g1_mul by 1/n)
+    "K14 g1_butterfly": ("plonkit_tpu_torch/csrc/group_ntt.cu", "plonkit_tpu/api.py:99"),
+    "K15 g1_scale": ("plonkit_tpu_torch/csrc/group_ntt.cu", "plonkit_tpu/api.py:95"),
 }
 SCAN_KERNELS = ("field_scan_mul_kernel", "field_scan_add_kernel", "field_inverse_kernel")
 BUTTERFLIES = ("K3 butterfly_dif", "K5 butterfly")
 TENSOR_CORE_NTT = ("K9 balanced_digits", "K10 dft_product", "K11 fold_redc")
+GROUP_NTT = ("K14 g1_butterfly", "K15 g1_scale")     # the Lagrange form of a key alone
 
 
 _print_lock = threading.Lock()
@@ -425,16 +451,20 @@ def sass_counts(lib: str, kernels) -> dict:
     return out
 
 
-def cli(*args, cwd: str, expect: int = 0, peak_rss: list = None) -> float:
+def cli(*args, cwd: str, expect: int = 0, peak_rss: list = None, threads: int = None) -> float:
     """`python3 -m plonkit_tpu_torch *args` in a subprocess (the default
     backend, the card); raises unless it exits with `expect`.  Returns its
-    wall seconds.  With `peak_rss`, sets peak_rss[0] to the largest
+    wall seconds.  `threads` caps the process's CPU threads (OpenMP and
+    PyTorch's intra-op pool).  With `peak_rss`, sets peak_rss[0] to the largest
     resident bytes of the process read from /proc/<pid>/statm every half
     second until it exits (resource's RUSAGE_CHILDREN counts this process's
     RSS at the fork, and not every kernel's /proc has VmHWM)."""
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "plonkit_tpu_torch", *args], cwd=cwd,
-                            env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+                            env=dict(os.environ, PYTHONPATH=REPO,
+                                     **({"OMP_NUM_THREADS": str(threads),
+                                         "MKL_NUM_THREADS": str(threads)} if threads else {})),
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     while True:
         try:
@@ -549,22 +579,35 @@ def _row(name, kern, plain, count, bytes_moved, int32_muls, reps, warm_plain=Tru
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
-    mism = _mismatches(got, want)
-    err = max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
-                  .abs().max()) for g, w in zip(got, want))
+    return _row_of(name, count, time_ms(kern, reps), plain_ms, _mismatches(got, want),
+                   _max_abs_err(got, want), bytes_moved, int32_muls, int8_ops,
+                   time_ms(library, reps) if library else None, **extra)
+
+
+def _max_abs_err(got, want) -> int:
+    """The largest difference of two limbs read as uint32."""
+    import torch
+    return max(int(((g.to(torch.int64) & 0xFFFFFFFF) - (w.to(torch.int64) & 0xFFFFFFFF))
+                   .abs().max()) for g, w in zip(got, want))
+
+
+def _row_of(name, count, ms, plain_ms, mism, err, bytes_moved, int32_muls, int8_ops=0,
+            library_ms=None, **extra) -> dict:
+    """A kernels-line row: the measured times, the comparison, and the bound
+    reckoned from this input's bytes, 32-bit multiplies and int8 operations."""
     bytes_s = bytes_moved / HBM_BYTES_PER_S
     ops_s = max(int32_muls / INT32_MUL_PER_S, int8_ops / INT8_OPS_PER_S)
     source, replaces = SOURCES[name]
     return dict({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "elements": count, "mismatches": mism, "max_abs_err": err,
-        "ms": time_ms(kern, reps), "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "bound_bytes": bytes_moved, "bound_int32_muls": int32_muls, "bound_int8_ops": int8_ops,
         "bound_basis": "max(bytes / 3.35e12 B/s, int32 multiplies / 16.75e12 per s, "
                        "int8 operations / 1.979e15 per s)",
-        "library_ms": time_ms(library, reps) if library else None,
+        "library_ms": library_ms,
     }, **extra)
 
 
@@ -1040,9 +1083,129 @@ def _batch_inverse_record() -> dict:
             "profiled_calls": copies}
 
 
+GROUP_NTT_CHECK_LANES = 1 << 12   # lanes of K14 / K15 held against their plain versions
+# 32-bit multiplies of one Montgomery squaring: 36 distinct wide products
+# of the 8 x 8 limbs instead of 64, the reduction as in MONT_MUL_OPS
+MONT_SQR_OPS = 2 * (36 + 64) + 8
+# the point operations of ec.cuh with their squarings at their own cost:
+# dbl-2009-l 2M + 5S, add-2007-bl 12M + 4S, and the add that takes its
+# doubling fallback after 6M + 2S (T[2] = T[1] + P of the ladder's table)
+DBL_OPS = 2 * MONT_MUL_OPS + 5 * MONT_SQR_OPS
+ADD_OPS = 12 * MONT_MUL_OPS + 4 * MONT_SQR_OPS
+TABLE_OPS = 13 * ADD_OPS + 6 * MONT_MUL_OPS + 2 * MONT_SQR_OPS + DBL_OPS
+
+
+def _ladder_ops(scalars: np.ndarray, glv: bool) -> np.ndarray:
+    """32-bit multiplies of [s]P for each [8] uint32 canonical scalar row:
+    none for 0 or 1, else the 4-bit window table, four doublings a window
+    below the top non-zero one and one add for each non-zero digit there
+    (csrc/group_ntt.cu's ladder).  With `glv`, the work the function
+    needs with BN254's endomorphism, phi(x, y) = (beta x, y) = [lambda]P:
+    s = k1 + k2 lambda with halves of about 127 bits takes half the
+    doublings, the same count of window adds, and the table of phi(P) at
+    one product an entry besides P's."""
+    shifts = np.arange(0, 32, 4, dtype=np.uint64)
+    digits = ((scalars.astype(np.uint64)[:, :, None] >> shifts) & 15).reshape(-1, 64)
+    nonzero = digits != 0
+    top = np.where(nonzero.any(axis=1), 63 - np.argmax(nonzero[:, ::-1], axis=1), -1)
+    adds = nonzero.sum(axis=1) - (top >= 0)
+    doublings = 4 * np.maximum(top, 0) // (2 if glv else 1)
+    ops = (TABLE_OPS + 15 * MONT_MUL_OPS * glv + doublings * DBL_OPS + adds * ADD_OPS)
+    return np.where((top <= 0) & (digits[:, 0] <= 1), 0, ops)
+
+
+def _group_ntt_rows(ctx) -> list:
+    """K14 g1_butterfly and K15 g1_scale at the main path's shapes: K14 on
+    stage 0 of a 2^20-point inverse transform (2^19 butterflies, the
+    twiddles w^-j), K15 on the 2^20 points of its 1/n.  The points are SRS
+    bases summed in pairs by K7 (Z != 1, as a later stage sees them), with
+    lo, hi or both at infinity, lo = [w]hi and lo = -[w]hi planted in
+    lanes 256 ... 1280.  The output of one launch is kept and every 128th
+    (K14) or 256th (K15) lane of it, 2^12 lanes, is held limb for limb
+    against the plain version run on those lanes' inputs (the plain ladder
+    is some hundred sequential point operations whatever the lanes);
+    plain_ms is that call's.  bound_ms counts what [w]P needs (_ladder_ops
+    with glv); ladder_bound_ms the kernel's own ladder, squarings at their
+    own cost in both."""
+    import torch
+    from plonkit_tpu_torch.curve import g1_mul, g1_neg
+    from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
+    from plonkit_tpu_torch.gpu import ec, field_kernels as fk, group_ntt, msm_kernels as mk, ntt
+    from plonkit_tpu_torch.gpu.mont import FR, to_numpy
+    n = 1 << MAIN_LOG2
+    half = n // 2
+    base = ec.jacobian_from_affine((ctx.table[:n, :8].contiguous(),
+                                    ctx.table[:n, 8:].contiguous(),
+                                    torch.zeros(n, dtype=torch.bool, device=DEVICE)))
+    pts = mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base))
+    del base
+    pows = ntt.powers(fr_inv(get_domain_omega(n)), half, DEVICE)
+    tw = fk.mul(FR, pows, FR.const_raw(1, half, DEVICE))    # w^-j, canonical
+    lo, hi = tuple(a[:half] for a in pts), tuple(a[half:] for a in pts)   # views of pts
+    for a in lo:
+        a[256], a[768] = 0, 0
+    for a in hi:
+        a[512], a[768] = 0, 0
+    lanes = [1024, 1280]
+    ws = FR.from_limbs_np(to_numpy(tw[lanes]))
+    hs = ec.to_affine_host(tuple(a[lanes] for a in hi))
+    planted = ec.jacobian_from_affine(ec.affine_from_host(
+        [g1_mul(hs[0], ws[0]), g1_neg(g1_mul(hs[1], ws[1]))], DEVICE))
+    for a, b in zip(lo, planted):
+        a[lanes] = b
+    at = torch.arange(0, half, half // GROUP_NTT_CHECK_LANES, device=DEVICE)
+    got = group_ntt.g1_butterfly(lo, hi, tw)
+    got = tuple(c[at] for c in got[0] + got[1])
+    want, plain_ms = _timed_once(lambda: group_ntt.g1_butterfly_plain(
+        tuple(a[at] for a in lo), tuple(a[at] for a in hi), tw[at]))
+    want = want[0] + want[1]
+    stride = half // GROUP_NTT_CHECK_LANES
+    infinite = {"lo - [w]hi at lane 1024 (lo = [w]hi)": bool((got[5][1024 // stride] == 0).all()),
+                "lo + [w]hi at lane 1280 (lo = -[w]hi)": bool((got[2][1280 // stride] == 0).all())}
+    scalars = to_numpy(tw)
+    fn_ops, ladder_ops = (int(_ladder_ops(scalars, glv).sum()) + 2 * ADD_OPS * half
+                          for glv in (True, False))
+    bytes_moved = half * (4 * POINT_BYTES + 32)
+    k14 = _row_of("K14 g1_butterfly", half,
+                  time_ms(lambda: group_ntt.g1_butterfly(lo, hi, tw), 3), plain_ms,
+                  _mismatches(got, want) + sum(not v for v in infinite.values()),
+                  _max_abs_err(got, want), bytes_moved, fn_ops,
+                  compared_elements=GROUP_NTT_CHECK_LANES, plain_elements=GROUP_NTT_CHECK_LANES,
+                  planted_infinity=infinite,
+                  ladder_bound_ms=max(bytes_moved / HBM_BYTES_PER_S,
+                                      ladder_ops / INT32_MUL_PER_S) * 1e3,
+                  note=f"ms and bound at 2^{MAIN_LOG2 - 1} butterflies (stage 0 of a "
+                       f"2^{MAIN_LOG2}-point inverse transform); the comparison and "
+                       f"plain_ms on one lane in {stride} of the "
+                       f"launch kept; bound_ms with GLV, ladder_bound_ms the kernel's ladder")
+    inv_n = fr_inv(n)
+    at = torch.arange(0, n, n // GROUP_NTT_CHECK_LANES, device=DEVICE)
+    got = tuple(c[at] for c in group_ntt.g1_scale(pts, inv_n))
+    want, plain_ms = _timed_once(lambda: group_ntt.g1_scale_plain(
+        tuple(a[at] for a in pts), inv_n))
+    inv_limbs = FR.to_limbs_np([inv_n])
+    fn_ops, ladder_ops = (int(_ladder_ops(inv_limbs, glv)[0]) * n for glv in (True, False))
+    bytes_moved = n * 2 * POINT_BYTES + 32
+    k15 = _row_of("K15 g1_scale", n, time_ms(lambda: group_ntt.g1_scale(pts, inv_n), 3),
+                  plain_ms, _mismatches(got, want), _max_abs_err(got, want),
+                  bytes_moved, fn_ops, compared_elements=GROUP_NTT_CHECK_LANES,
+                  plain_elements=GROUP_NTT_CHECK_LANES,
+                  infinite_lanes_kept=bool((got[2][[256 // stride // 2, 768 // stride // 2]] == 0).all()),
+                  ladder_bound_ms=max(bytes_moved / HBM_BYTES_PER_S,
+                                      ladder_ops / INT32_MUL_PER_S) * 1e3,
+                  note=f"ms and bound at the 2^{MAIN_LOG2} points of a transform's 1/n; "
+                       f"the comparison and plain_ms on one lane in {n // GROUP_NTT_CHECK_LANES}"
+                       f" of the launch kept; bound_ms with GLV, ladder_bound_ms the "
+                       f"kernel's ladder")
+    if not k15["infinite_lanes_kept"]:
+        k15["mismatches"] += 1
+    return [k14, k15]
+
+
 def phase_kernels(ctx) -> list:
     t0 = time.perf_counter()
-    rows = _field_rows() + _msm_rows(ctx) + _ntt_mxu_rows() + _scan_rows()
+    rows = (_field_rows() + _msm_rows(ctx) + _ntt_mxu_rows() + _scan_rows()
+            + _group_ntt_rows(ctx))
     binv = _batch_inverse_record()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
           "batch_inverse": binv,
@@ -1146,15 +1309,17 @@ def _host_commit_backend():
 
 
 def _reset_launches() -> None:
-    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt, ntt_mxu
-    for counts in (fk.launches, ntt.launches, mk.launches, ntt_mxu.launches):
+    from plonkit_tpu_torch.gpu import (field_kernels as fk, group_ntt, msm_kernels as mk, ntt,
+                                       ntt_mxu)
+    for counts in (fk.launches, ntt.launches, mk.launches, ntt_mxu.launches, group_ntt.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _launch_counts() -> dict:
     """Launches of every kernel since the last _reset_launches, by row name."""
-    from plonkit_tpu_torch.gpu import field_kernels as fk, msm_kernels as mk, ntt, ntt_mxu
+    from plonkit_tpu_torch.gpu import (field_kernels as fk, group_ntt, msm_kernels as mk, ntt,
+                                       ntt_mxu)
     return {"K1 mul": fk.launches["mul"], "K2a add": fk.launches["add"],
             "K2b sub": fk.launches["sub"], "K3 butterfly_dif": ntt.launches["butterfly_dif"],
             "K4 mul_add": fk.launches["mul_add"], "K5 butterfly": ntt.launches["butterfly"],
@@ -1166,7 +1331,9 @@ def _launch_counts() -> dict:
             "K10 dft_product": ntt_mxu.launches["dft_product"],
             "K11 fold_redc": ntt_mxu.launches["fold_redc"],
             "K12 field_scan": fk.launches["scan"],
-            "K13 field_inverse": fk.launches["inverse"]}
+            "K13 field_inverse": fk.launches["inverse"],
+            "K14 g1_butterfly": group_ntt.launches["g1_butterfly"],
+            "K15 g1_scale": group_ntt.launches["g1_scale"]}
 
 
 @contextlib.contextmanager
@@ -1200,6 +1367,51 @@ def _tampered(proof):
     out = Proof.read(io.BytesIO(proof.to_bytes()))
     out.wire_values_at_z[0] = (out.wire_values_at_z[0] + 1) % (1 << 253)
     return out
+
+
+def phase_lagrange(setup, circuit, key: str, tmp: str, proof_bytes: bytes):
+    """The main circuit's Lagrange key made on the card from the 2^23 key
+    (api.crs_lagrange_form: 20 K14 stages, one K15, K12 and K13 for the
+    affine conversion, K1) under torch.profiler, with its wall and device
+    seconds and launches, written as a key file; then one prove with it
+    (the prove -l path) from a copy of the setup, whose proof.bin must be
+    the first proof's.  Returns the launches and the key file's sha256."""
+    import torch
+    from plonkit_tpu_torch.api import crs_lagrange_form
+    from plonkit_tpu_torch.serialization import CrsHandle
+    domain = setup.setup_polynomials.domain_size
+    _reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        lagrange = crs_lagrange_form(CrsHandle(key), domain)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    kernels, busy, by_kernel = device_activity(prof)
+    path = os.path.join(tmp, f"lagrange_2pow{MAIN_LOG2}.key")
+    t0 = time.perf_counter()
+    lagrange.save(path)
+    save_s = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    l_setup = copy.copy(setup)
+    l_setup.key_lagrange_form, l_setup._prover_ctx = lagrange, None
+    t0 = time.perf_counter()
+    same = l_setup.prove(circuit).to_bytes() == proof_bytes
+    prove_s = time.perf_counter() - t0
+    want = {"K14 g1_butterfly": domain.bit_length() - 1, "K15 g1_scale": 1}
+    emit({"phase": "lagrange", "domain": domain, "dump_wall_s": wall, "device_busy_s": busy,
+          "device_events": len(kernels), "by_kernel": by_kernel, "save_s": save_s,
+          "key_sha256": digest, "prove_l_s": prove_s, "prove_l_equals_first_proof": same,
+          "launches": launches})
+    if not same:
+        raise AssertionError("the prove with the Lagrange key gave other bytes")
+    if any(launches[k] != v for k, v in want.items()) or not all(
+            launches[k] for k in ("K1 mul", "K12 field_scan", "K13 field_inverse")):
+        raise AssertionError(f"the Lagrange dump's launches: {launches}, expected {want} "
+                             "and K1, K12, K13")
+    return launches, digest
 
 
 def phase_main(key: str):
@@ -1282,15 +1494,16 @@ def phase_main(key: str):
                              f"{commitments} for the commitment groups {groups}: one K8 "
                              "launch a group expected")
     # under auto the tensor cores take every transform of this path; the
-    # butterflies must launch in the pease prove instead
-    idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES]
+    # butterflies must launch in the pease prove instead, the group NTT in
+    # the Lagrange dump (phase_lagrange)
+    idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES + GROUP_NTT]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
     idle = [k for k in BUTTERFLIES if launches_pease[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched in the pease prove: {idle}")
     profile_prove(setup, circuit, vk)
-    return launches, launches_pease, circuit, vk.to_bytes(), proof.to_bytes()
+    return launches, launches_pease, circuit, vk.to_bytes(), proof.to_bytes(), setup
 
 
 def _host_commit_reference(key: str) -> dict:
@@ -1459,7 +1672,7 @@ def phase_mesh(setup, circuit, vk_bytes: bytes, proof_bytes: bytes) -> dict:
     # the mesh's 4-step runs on the butterflies (parallel/ntt.py), as the
     # JAX package's does, so the tensor-core NTT may idle
     idle = [k for k, v in launches.items()
-            if v == 0 and k != "K2b sub" and k not in TENSOR_CORE_NTT]
+            if v == 0 and k != "K2b sub" and k not in TENSOR_CORE_NTT + GROUP_NTT]
     if idle:
         raise AssertionError(f"kernels never launched on the mesh path: {idle}")
     return launches
@@ -1513,30 +1726,49 @@ def inner_proof_path(tmp: str, i: int) -> str:
     return os.path.join(tmp, "cli64", f"proof_{i}.bin")
 
 
-def _inner_prove(tmp: str, i: int, backend: str) -> list:
+def _inner_prove(tmp: str, i: int, backend: str, key: str = "setup.key") -> list:
     """The CLI's arguments for the rescue prove of witness_<i>.json on
     `backend`: the card's into inner_proof_path, the CPU's beside it."""
     gen = os.path.join(tmp, "inner")
     out = f"proof_{i}" if backend == "cuda" else f"proof_{i}_cpu"
-    return ["--backend", backend, "prove", "-m", "setup.key",
+    return ["--backend", backend, "prove", "-m", key,
             "-c", os.path.join(gen, "circuit.r1cs.json"),
             "-w", os.path.join(gen, f"witness_{i}.json"), "-t", "rescue",
             "-p", out + ".bin", "-j", out + ".json", "-i", out.replace("proof", "public") + ".json"]
 
 
-def phase_inner_proofs(tmp: str) -> dict:
-    """Phase 7's first waves: scripts/gen_inner_circuit.py writes the
-    circuit and AGG_PROOFS witnesses, setup -p 10 and analyse run, then the
-    rescue proofs of witness_2 ... witness_4 on the card, the inner proofs
-    that phase 10 aggregates beside the fixture's pair.  Returns the wall
-    seconds of each call."""
-    t_all = time.perf_counter()
+def start_cpu_calls(tmp: str, key: str, pool) -> dict:
+    """Phase 7's calls that use no card, started in `pool` once phase 2's
+    key exists, so that they run beside phases 3-6 and not in the wave of
+    phases 7-10: scripts/gen_inner_circuit.py writes the circuit and
+    AGG_PROOFS witnesses, then the rescue proves of witness_2 ...
+    witness_4 and the fixture's dump-lagrange with --backend cpu, over the
+    first points of phase 2's key (those of phase 7's setup -p 10, which
+    phase 7 checks).  Each takes one CPU thread, so that the four leave
+    the host's other cores to phases 3-6, whose host times they would
+    otherwise stretch.  Returns {label: future of the call's wall
+    seconds}."""
     d = os.path.join(tmp, "cli64")
     os.makedirs(d)
     gen = os.path.join(tmp, "inner")
     os.makedirs(gen)
     subprocess.run([sys.executable, os.path.join(REPO, "scripts", "gen_inner_circuit.py"), gen,
                     str(AGG_PROOFS)], check=True, capture_output=True, timeout=120)
+    calls = {f"--backend cpu prove -t rescue witness_{i}": _inner_prove(tmp, i, "cpu", key)
+             for i in INNER}
+    calls["--backend cpu dump-lagrange"] = ["--backend", "cpu", "dump-lagrange", "-m", key,
+                                            "-l", "lagrange_cpu.key",
+                                            "-c", os.path.join(FIXTURES, "circuit.r1cs.json")]
+    return {label: pool.submit(cli, *args, cwd=d, threads=1) for label, args in calls.items()}
+
+
+def phase_inner_proofs(tmp: str) -> dict:
+    """Phase 7's first waves: setup -p 10 and analyse, then the rescue
+    proofs of witness_2 ... witness_4 on the card, the inner proofs that
+    phase 10 aggregates beside the fixture's pair.  Returns the wall
+    seconds of each call."""
+    t_all = time.perf_counter()
+    d = os.path.join(tmp, "cli64")
     s = cli_together(("setup", ["setup", "-p", "10", "-m", "setup.key"]),
                      ("analyse", ["analyse", "-c", os.path.join(FIXTURES, "circuit.r1cs.json"),
                                   "-o", "analyse.json"]), cwd=d)
@@ -1546,11 +1778,12 @@ def phase_inner_proofs(tmp: str) -> dict:
     return s
 
 
-def phase_cli(tmp: str, s: dict) -> None:
+def phase_cli(tmp: str, s: dict, cpu_calls: dict) -> None:
     """The base subcommands on the in-repo domain-64 circuit, on the card,
     after phase_inner_proofs (whose seconds `s` holds); the inner proofs
-    again on the CPU, each equal to the card's.  Calls that do not need
-    each other's files run at once."""
+    and dump-lagrange on the CPU (start_cpu_calls' `cpu_calls`), each equal
+    to the card's.  Calls that do not need each other's files run at
+    once."""
     t_all = time.perf_counter()
     d = os.path.join(tmp, "cli64")
     circuit = os.path.join(FIXTURES, "circuit.r1cs.json")
@@ -1563,9 +1796,7 @@ def phase_cli(tmp: str, s: dict) -> None:
                            "-c", circuit]),
         ("--backend mesh prove", ["--backend", "mesh", "prove", "-m", "setup.key", "-c", circuit,
                                   "-w", witness, "-p", "proof_mesh.bin", "-j", "proof_mesh.json",
-                                  "-i", "public_mesh.json"]),
-        *[(f"--backend cpu prove -t rescue witness_{i}", _inner_prove(tmp, i, "cpu"))
-          for i in INNER], cwd=d))
+                                  "-i", "public_mesh.json"]), cwd=d))
     with open(os.path.join(d, "proof.bin"), "rb") as f:
         blob = bytearray(f.read())
     blob[17] ^= 1                                   # a bit of the public input
@@ -1586,11 +1817,23 @@ def phase_cli(tmp: str, s: dict) -> None:
         ("verify -t rescue", ["verify", "-p", "proof_rescue.bin", "-v", "vk.bin", "-t", "rescue"]),
         *[(f"verify -t rescue proof_{i}", ["verify", "-p", f"proof_{i}.bin", "-v", "vk.bin",
                                            "-t", "rescue"]) for i in INNER], cwd=d))
+    s.update({label: f.result() for label, f in cpu_calls.items()})
     with open(os.path.join(d, "analyse.json")) as f:
         stats = json.load(f)
     with open(os.path.join(d, "verifier.sol")) as f:
         sol = f.read()
-    same = {"vk.bin = fixture vk.bin": _same_file(os.path.join(d, "vk.bin"),
+    n = 1 << 10
+    with open(os.path.join(d, "setup.key"), "rb") as f, \
+            open(os.path.join(tmp, f"srs_2pow{SRS_LOG2}.key"), "rb") as big:
+        small = f.read()
+        g1 = big.read(8 + 64 * n)[8:]
+        big.seek(8 + 64 * (1 << SRS_LOG2))
+        g2 = big.read()
+    same = {"setup -p 10 (card) = the first 2^10 points of phase 2's key":
+                small[8:8 + 64 * n] == g1 and small[8 + 64 * n:] == g2,
+            "dump-lagrange card = cpu": _same_file(os.path.join(d, "lagrange.key"),
+                                                   os.path.join(d, "lagrange_cpu.key")),
+            "vk.bin = fixture vk.bin": _same_file(os.path.join(d, "vk.bin"),
                                                   os.path.join(FIXTURES, "vk.bin")),
             "prove -l = prove": _same_file(os.path.join(d, "proof_l.bin"),
                                            os.path.join(d, "proof.bin")),
@@ -1611,10 +1854,13 @@ def phase_cli(tmp: str, s: dict) -> None:
         raise AssertionError(f"CLI outputs differ: {same}, placeholders {sol.count('{{')}")
 
 
-def phase_cli_full(tmp: str, key: str, circuit, vk_bytes: bytes, proof_bytes: bytes) -> None:
+def phase_cli_full(tmp: str, key: str, circuit, vk_bytes: bytes, proof_bytes: bytes,
+                   lagrange_sha256: str) -> None:
     """The main path's circuit through the CLI: its vk.bin and proof.bin
-    must be the API's bytes.  export-verification-key and prove run at
-    once (each transpiles the circuit on the host), then verify."""
+    must be the API's bytes, its lagrange.key the in-process key's (its
+    sha256) and `prove -l`'s proof.bin the API's.  export-verification-key,
+    prove and dump-lagrange run at once (each transpiles the circuit on the
+    host), then prove -l and verify."""
     from plonkit_tpu_torch.frontend.r1cs import write_r1cs_bin
     from plonkit_tpu_torch.frontend.witness import write_witness_bin
     t_all = time.perf_counter()
@@ -1628,13 +1874,21 @@ def phase_cli_full(tmp: str, key: str, circuit, vk_bytes: bytes, proof_bytes: by
     write_witness_bin(circuit.witness, os.path.join(d, "witness.wtns"))
     s["write .wtns"] = time.perf_counter() - t0
     s.update(cli_together(("export-verification-key", ["export-verification-key", "-m", key]),
-                          ("prove", ["prove", "-m", key]), cwd=d))
-    s["verify"] = cli("verify", cwd=d)
-    with open(os.path.join(d, "vk.bin"), "rb") as f:
-        vk_cli = f.read()
-    with open(os.path.join(d, "proof.bin"), "rb") as f:
-        proof_cli = f.read()
-    same = {"vk.bin": vk_cli == vk_bytes, "proof.bin": proof_cli == proof_bytes}
+                          ("prove", ["prove", "-m", key]),
+                          ("dump-lagrange", ["dump-lagrange", "-m", key, "-l", "lagrange.key"]),
+                          cwd=d))
+    s.update(cli_together(("prove -l", ["prove", "-m", key, "-l", "lagrange.key",
+                                        "-p", "proof_l.bin", "-j", "proof_l.json",
+                                        "-i", "public_l.json"]),
+                          ("verify", ["verify"]), cwd=d))
+
+    def read(name):
+        with open(os.path.join(d, name), "rb") as f:
+            return f.read()
+    same = {"vk.bin": read("vk.bin") == vk_bytes, "proof.bin": read("proof.bin") == proof_bytes,
+            "lagrange.key sha256": hashlib.sha256(read("lagrange.key")).hexdigest()
+            == lagrange_sha256,
+            "prove -l proof.bin": read("proof_l.bin") == proof_bytes}
     emit({"phase": "cli_full", "domain": 1 << MAIN_LOG2, "identical_to_api": same,
           "seconds": {k: round(v, 3) for k, v in s.items()},
           "total_s": round(time.perf_counter() - t_all, 3)})
@@ -1936,7 +2190,7 @@ def phase_recursive(tmp: str, key: str, rec_vk_path):
                              f"split {split}, engine {engine}")
     # on the card the tensor cores take every transform of 512 points or
     # more: the butterflies, left with the smaller ones, may idle
-    idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES]
+    idle = [k for k, v in launches.items() if v == 0 and k not in BUTTERFLIES + GROUP_NTT]
     if idle:
         raise AssertionError(f"kernels never launched on the recursive path: {idle}")
     return launches, agg
@@ -2167,25 +2421,31 @@ def main() -> int:
     from plonkit_tpu_torch.serialization import CrsHandle
     t0 = time.perf_counter()
     phase_build()
-    with tempfile.TemporaryDirectory(prefix="plonkit_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="plonkit_smoke_") as tmp, \
+            ThreadPoolExecutor(len(INNER) + 1) as cpu_pool:
         key, launches_srs = phase_srs(tmp)
+        cpu_calls = start_cpu_calls(tmp, key, cpu_pool)
         handle = CrsHandle(key)
         ctx = TorchBackend(DEVICE).device_msm_context(handle, 1 << MAIN_LOG2)
         rows = phase_kernels(ctx)
         phase_msm(ctx, HostMSMContext.from_limbs(*handle.g1_limbs(1 << MAIN_LOG2)))
         del ctx
         phase_cross_check(tmp)
-        launches, launches_pease, circuit, vk_bytes, proof_bytes = phase_main(key)
+        launches, launches_pease, circuit, vk_bytes, proof_bytes, setup = phase_main(key)
+        launches_lagrange, lagrange_sha256 = phase_lagrange(setup, circuit, key, tmp,
+                                                            proof_bytes)
+        del setup
         torch.cuda.empty_cache()
         built = _build_snapshot()
         # phases 7, 8 and 9 in CLI processes; once phase 7 has proved the
         # inner proofs, phase 10 proves their aggregate in this process
         with ThreadPoolExecutor(5) as pool:
-            full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes)
+            full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes,
+                               lagrange_sha256)
             rec = pool.submit(phase_recursive_cli, tmp, key)
             pair_vk = pool.submit(phase_recursive_vk_pair, tmp, key)
             agg_vk = pool.submit(phase_recursive_vk_agg, tmp, key)
-            cli64 = pool.submit(phase_cli, tmp, phase_inner_proofs(tmp))
+            cli64 = pool.submit(phase_cli, tmp, phase_inner_proofs(tmp), cpu_calls)
             launches_recursive, agg = phase_recursive(tmp, key, agg_vk)
             for phase in (cli64, full, rec, pair_vk):
                 phase.result()
@@ -2209,6 +2469,7 @@ def main() -> int:
         r["launches_recursive"] = launches_recursive[r["name"]]
         r["launches_srs"] = launches_srs[r["name"]]
         r["launches_mesh"] = launches_mesh[r["name"]]
+        r["launches_lagrange"] = launches_lagrange[r["name"]]
     emit({"kernels": rows})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     print(card_line(), flush=True)

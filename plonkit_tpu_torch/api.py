@@ -1,6 +1,7 @@
 """Entry points of the port, mirroring plonkit_tpu/api.py (and plonkit's
 src/plonk.rs orchestration layer): SetupForProver, make_verification_key,
-verify, analyse, the deterministic dev SRS and its Lagrange form.
+verify, analyse, the deterministic dev SRS and the Lagrange form of a key
+(a group NTT on the card).
 
 The card is the default: SetupForProver builds a TorchBackend on
 `device="cuda"` unless it is given a backend or another device.
@@ -11,16 +12,20 @@ import logging
 from dataclasses import asdict, dataclass, field
 from typing import List, Optional
 
-from .curve import G2_GEN, g1_add, g1_mul, g1_neg, g2_mul
-from .fields import FR_MODULUS, fr_inv, get_domain_omega
+import numpy as np
+
+from .backend_torch import TorchBackend
+from .curve import G2_GEN, g2_mul
 from .frontend.circuit import CircomCircuit
 from .frontend.transpiler import build_witness_plan, transpile
+from .gpu.group_ntt import group_intt
+from .gpu.mont import FQ
 from .plonk.prover import ProverContext, prove as _prove, validate_witness
 from .plonk.setup import (SETUP_MAX_POW2, SETUP_MIN_POW2,
                           make_setup_polynomials, make_verification_key)
 from .plonk.verifier import verify as _verify
 from .profiling import stage
-from .serialization import Crs, Proof, VerificationKey
+from .serialization import Crs, CrsLimbs, Proof, VerificationKey
 from .srs import dev_srs_g1
 
 log = logging.getLogger("plonkit_tpu_torch")
@@ -71,40 +76,25 @@ def gen_key_monomial_form(power: int) -> Crs:
     return Crs(g1, [G2_GEN, g2_mul(G2_GEN, DEV_TAU)])
 
 
-def crs_lagrange_form(crs, domain_size: int) -> Crs:
-    """Monomial -> Lagrange form: L_i(tau) * G = iNTT over the first
-    `domain_size` G1 points (a group NTT), host python as in the JAX
-    package: ~domain_size * log2(domain_size) / 2 + domain_size full scalar
-    multiplications.  A group NTT on the card is later work."""
-    if domain_size & (domain_size - 1):
+def crs_lagrange_form(crs, domain_size: int, device="cuda") -> CrsLimbs:
+    """Monomial -> Lagrange form: L_i(tau) * G for i < domain_size, the
+    inverse group NTT of the key's first `domain_size` G1 points
+    (gpu/group_ntt.group_intt: K14 and K15 on the card by default, their
+    plain versions for device="cpu").  `crs` is a CrsHandle (its limb rows
+    are read as they are) or a Crs.  Returns a key held as limb rows, which
+    SetupForProver takes as key_lagrange_form and save() writes."""
+    if domain_size < 1 or domain_size & (domain_size - 1):
         raise ValueError(f"domain size {domain_size} is not a power of two")
-    points = _group_ntt(list(crs.g1_bases[:domain_size]), fr_inv(get_domain_omega(domain_size)))
-    inv_n = fr_inv(domain_size)
-    return Crs([g1_mul(p, inv_n) for p in points], list(crs.g2_monomial_bases))
-
-
-def _group_ntt(points, omega):
-    """Radix-2 DIT NTT over G1 points (bit reversal, then butterflies)."""
-    n = len(points)
-    bits = n.bit_length() - 1
-    out = [None] * n
-    for i in range(n):
-        j = int(format(i, f"0{bits}b")[::-1], 2) if bits else 0
-        out[j] = points[i]
-    size = 2
-    while size <= n:
-        w_step = pow(omega, n // size, FR_MODULUS)
-        half = size // 2
-        for start in range(0, n, size):
-            w = 1
-            for k in range(half):
-                lo = out[start + k]
-                hi = g1_mul(out[start + k + half], w)
-                out[start + k] = g1_add(lo, hi)
-                out[start + k + half] = g1_add(lo, g1_neg(hi))
-                w = w * w_step % FR_MODULUS
-        size *= 2
-    return out
+    TorchBackend(device)                          # raises for "cuda" without a card
+    if hasattr(crs, "g1_limbs"):
+        x, y, inf = crs.g1_limbs(domain_size)
+    else:
+        pts = crs.g1_bases[:domain_size]
+        x, y = (FQ.to_limbs_np([0 if p is None else p[c] for p in pts]) for c in (0, 1))
+        inf = np.array([p is None for p in pts], dtype=bool)
+    if x.shape[0] < domain_size:
+        raise ValueError(f"the key has {x.shape[0]} points, the domain {domain_size}")
+    return CrsLimbs(*group_intt(x, y, inf, device), list(crs.g2_monomial_bases))
 
 
 class SetupForProver:
@@ -124,7 +114,6 @@ class SetupForProver:
         if not (SETUP_MIN_POW2 <= size_log <= SETUP_MAX_POW2):
             raise ValueError("setup power of two is not in the correct range")
         if backend is None:
-            from .backend_torch import TorchBackend
             backend = TorchBackend(device)
         self.crs = key_monomial_form
         self.key_lagrange_form = key_lagrange_form
@@ -151,8 +140,9 @@ class SetupForProver:
         return _prove(self.setup_polynomials, cols, pub, ctx=self._prover_ctx,
                       transcript=transcript)
 
-    def get_srs_lagrange_form_from_monomial_form(self) -> Crs:
-        return crs_lagrange_form(self.crs, self.setup_polynomials.domain_size)
+    def get_srs_lagrange_form_from_monomial_form(self) -> CrsLimbs:
+        return crs_lagrange_form(self.crs, self.setup_polynomials.domain_size,
+                                 device=self.backend.device)
 
 
 def verify(vk: VerificationKey, proof: Proof, transcript: str = "keccak") -> bool:

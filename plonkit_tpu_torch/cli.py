@@ -16,9 +16,10 @@ an invalid proof or aggregation (seen as 144 by a POSIX shell).
 mesh` proves on parallel/backend_mesh.MeshBackend over the card(s): a
 world of one NCCL rank, or the ranks of torchrun's environment, of which
 rank 0 writes the files.  Nothing falls back from one to another.
-`setup -p` above 16 makes the SRS on the card (gpu/fixed_base.py) with
-`--backend cuda` or `mesh`, and on the host (srs.py) otherwise, as
-plonkit_tpu/cli.py does.
+`setup -p` makes the SRS on the card (gpu/fixed_base.py) and
+`dump-lagrange` the Lagrange form on the card (gpu/group_ntt.py) with
+`--backend cuda` or `mesh` (each rank computes it, rank 0 writes it);
+`--backend cpu` takes srs.py and the plain versions.
 """
 
 import argparse
@@ -30,7 +31,7 @@ import sys
 from . import api
 from .backend_torch import TorchBackend
 from .frontend import CircomCircuit, load_r1cs, load_witness
-from .serialization import Crs, CrsHandle, Proof, VerificationKey
+from .serialization import CrsHandle, Proof, VerificationKey
 
 log = logging.getLogger("plonkit_tpu_torch")
 
@@ -80,7 +81,9 @@ def cmd_analyse(args):
 
 def cmd_setup(args):
     _no_clobber(args.srs_monomial_form, args.overwrite, "srs_monomial_form")
-    if args.power > 16 and args.backend != "cpu":
+    if not (api.SETUP_MIN_POW2 <= args.power <= api.SETUP_MAX_POW2):
+        raise ValueError("setup power of two is not in the correct range")
+    if args.backend != "cpu":
         from .curve import G2_GEN, g2_mul
         from .gpu.fixed_base import gen_crs_g1_device
         from .serialization import save_crs_g1_limbs
@@ -95,7 +98,7 @@ def cmd_setup(args):
 def cmd_dump_lagrange(args):
     circuit = _load_circuit(_resolve_circuit_file(args.circuit))
     backend = _backend(args)
-    setup = api.SetupForProver(circuit, Crs.load(args.srs_monomial_form), backend=backend)
+    setup = api.SetupForProver(circuit, CrsHandle(args.srs_monomial_form), backend=backend)
     key_l = setup.get_srs_lagrange_form_from_monomial_form()
     if not _writes(backend):
         return
@@ -258,15 +261,15 @@ def build_parser():
     sp.set_defaults(func=cmd_analyse)
 
     sp = sub.add_parser("setup", help="Trusted locally set up Plonk universal srs in monomial "
-                                      "form (the tau = 42 dev SRS: on the card above 2^16 "
-                                      "with --backend cuda, else serial python on the host)")
+                                      "form (the tau = 42 dev SRS: on the card, or serial "
+                                      "python on the host with --backend cpu)")
     sp.add_argument("-p", "--power", type=int, required=True)
     sp.add_argument("-m", "--srs_monomial_form", required=True)
     sp.add_argument("--overwrite", action="store_true")
     sp.set_defaults(func=cmd_setup)
 
     sp = sub.add_parser("dump-lagrange", help='Dump "SRS in lagrange form" from a "SRS in '
-                                              'monomial form" (a group NTT in host python)')
+                                              'monomial form" (a group NTT on the card)')
     sp.add_argument("-m", "--srs_monomial_form", required=True)
     sp.add_argument("-l", "--srs_lagrange_form", required=True)
     sp.add_argument("-c", "--circuit")

@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
-SOURCES = ("field", "ntt", "msm", "ntt_mxu", "scan")
+SOURCES = ("field", "ntt", "msm", "ntt_mxu", "scan", "group_ntt")
 _HEADERS = ("field.cuh", "ec.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -48,6 +48,8 @@ _ARGTYPES = {
                 "plonkit_fold_redc": [_P, _P] + [ctypes.c_longlong] * 2 + [_P]},
     "scan": {"plonkit_field_scan": [_P] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [_P],
              "plonkit_field_inverse": [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, _P]},
+    "group_ntt": {"plonkit_g1_butterfly": [_P] * 13 + [ctypes.c_longlong, _P],
+                  "plonkit_g1_scale": [_P] * 7 + [ctypes.c_longlong, _P]},
 }
 
 _libs = {}

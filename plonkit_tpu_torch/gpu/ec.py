@@ -16,6 +16,8 @@ wrappers in gpu/msm_kernels.py take them for CPU tensors.  They compute
 the generic formula only on the rows that keep it (both operands finite)
 and `double` only on the rows that meet P + P: the reference computes
 every branch on every lane and selects, which gives the same limbs.
+Products that do not depend on each other go through one call (_muls),
+which changes no value.
 """
 
 import numpy as np
@@ -33,6 +35,13 @@ def _mul(a, b):
 
 def _sqr(a):
     return mont.mont_mul(SPEC, a, a)
+
+
+def _muls(*pairs):
+    """Independent products a * b of the pairs in one call (the rows
+    stacked): the plain ops' cost is mostly per call at small N."""
+    n = pairs[0][0].shape[0]
+    return _mul(torch.cat([a for a, _ in pairs]), torch.cat([b for _, b in pairs])).split(n)
 
 
 def _add(a, b):
@@ -80,17 +89,17 @@ def select(flag, p, q):
 def double(p):
     """dbl-2009-l: 2M + 5S (a = 0 curve).  Infinity (Z = 0) stays Z = 0."""
     X, Y, Z = p
-    A = _sqr(X)
-    B = _sqr(Y)
-    C = _sqr(B)
-    t = _sub(_sqr(_add(X, B)), _add(A, C))
+    A, B, YZ = _muls((X, X), (Y, Y), (Y, Z))
+    XB = _add(X, B)
+    C, XB2 = _muls((B, B), (XB, XB))
+    t = _sub(XB2, _add(A, C))
     D = _dbl_f(t)
     E = _add(_dbl_f(A), A)
     F = _sqr(E)
     X3 = _sub(F, _dbl_f(D))
     eight_c = _dbl_f(_dbl_f(_dbl_f(C)))
     Y3 = _sub(_mul(E, _sub(D, X3)), eight_c)
-    Z3 = _dbl_f(_mul(Y, Z))
+    Z3 = _dbl_f(YZ)
     return (X3, Y3, Z3)
 
 
@@ -98,38 +107,31 @@ def _add_generic(p, q):
     """add-2007-bl on finite operands: (X3, Y3, Z3), H, r."""
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    Z1Z1 = _sqr(Z1)
-    Z2Z2 = _sqr(Z2)
-    U1 = _mul(X1, Z2Z2)
-    U2 = _mul(X2, Z1Z1)
-    S1 = _mul(Y1, _mul(Z2, Z2Z2))
-    S2 = _mul(Y2, _mul(Z1, Z1Z1))
+    Z1Z1, Z2Z2, Z1Z2 = _muls((Z1, Z1), (Z2, Z2), (Z1, Z2))
+    U1, U2, Z2Z2Z2, Z1Z1Z1 = _muls((X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1))
+    S1, S2 = _muls((Y1, Z2Z2Z2), (Y2, Z1Z1Z1))
     H = _sub(U2, U1)
     r = _sub(S2, S1)
-    HH = _sqr(H)
-    HHH = _mul(H, HH)
-    V = _mul(U1, HH)
-    X3 = _sub(_sub(_sqr(r), HHH), _dbl_f(V))
-    Y3 = _sub(_mul(r, _sub(V, X3)), _mul(S1, HHH))
-    Z3 = _mul(_mul(Z1, Z2), H)
-    return (X3, Y3, Z3), H, r
+    HH, RR = _muls((H, H), (r, r))
+    HHH, V, Z3 = _muls((H, HH), (U1, HH), (Z1Z2, H))
+    X3 = _sub(_sub(RR, HHH), _dbl_f(V))
+    A, B = _muls((r, _sub(V, X3)), (S1, HHH))
+    return (X3, _sub(A, B), Z3), H, r
 
 
 def _madd_generic(p, x2, y2):
     """madd-2007-bl (Z2 = 1) on finite operands: (X3, Y3, Z3), H, r."""
     X1, Y1, Z1 = p
     Z1Z1 = _sqr(Z1)
-    U2 = _mul(x2, Z1Z1)
-    S2 = _mul(y2, _mul(Z1, Z1Z1))
+    U2, Z1Z1Z1 = _muls((x2, Z1Z1), (Z1, Z1Z1))
+    S2 = _mul(y2, Z1Z1Z1)
     H = _sub(U2, X1)
     r = _sub(S2, Y1)
-    HH = _sqr(H)
-    HHH = _mul(H, HH)
-    V = _mul(X1, HH)
-    X3 = _sub(_sub(_sqr(r), HHH), _dbl_f(V))
-    Y3 = _sub(_mul(r, _sub(V, X3)), _mul(Y1, HHH))
-    Z3 = _mul(Z1, H)
-    return (X3, Y3, Z3), H, r
+    HH, RR = _muls((H, H), (r, r))
+    HHH, V, Z3 = _muls((H, HH), (X1, HH), (Z1, H))
+    X3 = _sub(_sub(RR, HHH), _dbl_f(V))
+    A, B = _muls((r, _sub(V, X3)), (Y1, HHH))
+    return (X3, _sub(A, B), Z3), H, r
 
 
 def _complete(p_fin, res, H, r):

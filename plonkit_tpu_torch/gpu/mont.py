@@ -11,9 +11,11 @@ The ops here are the plain versions of the CUDA kernels in csrc/ (K1 mul,
 K2 add/sub, K4 mul_add, K5 butterfly; K3 is composed in ntt.py): the
 wrappers in field_kernels.py and ntt.py take them for tensors on the CPU,
 and chip_smoke.py holds each kernel against them on the card.  They compute
-on int64 tensors holding 16-bit limbs (limb axis first), so no product or
-column sum can overflow: the CIOS loop is the one of tpu/mont.py:mont_mul.
+on int64 tensors holding 16-bit limbs, so no product or column sum can
+overflow; add, sub and mont_mul come in two forms with one result (below).
 """
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -141,17 +143,120 @@ def _cond_sub_p(spec: FieldSpec, limbs: torch.Tensor) -> torch.Tensor:
     return torch.where((borrow == 0)[None], d, limbs)
 
 
+# Two forms of the element ops, one result.  The limb loop (the CIOS loop
+# of tpu/mont.py:mont_mul over [16, N] limbs) makes some hundreds of
+# PyTorch calls on vectors of N; the vectorised form works on [N, 16] rows
+# (limb axis last): a product is one broadcast of the 256 limb products
+# summed into columns, Montgomery's reduction takes m = T * (-p^-1) mod
+# 2^256 whole, and carries are a few shift-and-add passes and one prefix
+# scan for the unit carries left, some tens of calls in all but ~2 KB of
+# temporaries a row.  For few rows the calls cost the time (the ladders of
+# gpu/group_ntt.py run 2^12 lanes through hundreds of sequential point
+# operations), for many the bytes: the loop takes over above VEC_ROWS rows.
+# `python -m plonkit_tpu_torch.gpu.plain_forms` times both (ms, loop /
+# vectorised; H100 80GB HBM3 at 700 W): mont_mul 3.41 / 1.06 at 2^14
+# rows, 3.95 / 3.21 at 2^16, 6.81 / 12.8 at 2^18, 23.3 / 50.5 at 2^20;
+# add 1.36 / 0.49 at 2^14, 1.53 / 1.68 at 2^16; the plain K15 ladder on
+# 2^12 lanes 14.6 / 6.1 s.  On a shared 8-thread CPU (medians, which
+# vary by tens of percent there): mont_mul 3.60 / 1.69 at 2^8 rows, 4.79 /
+# 2.93 at 2^10, add 1.23 / 1.19 at 2^10; the ladder on 2 lanes 7.8 / 2.9
+# s.
+VEC_ROWS = {"cpu": 1 << 10, "cuda": 1 << 16}
+
+
+def _vectorised(a: torch.Tensor) -> bool:
+    return a.shape[0] <= VEC_ROWS[a.device.type]
+
+
+def _rows16(a: torch.Tensor) -> torch.Tensor:
+    """[N, 8] int32 -> [N, 16] int64 16-bit limbs."""
+    w = a.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & _M16, w >> 16], dim=2).reshape(a.shape[0], _NL16)
+
+
+def _rows32(x: torch.Tensor) -> torch.Tensor:
+    """[N, 16] int64 limbs (each < 2^16) -> [N, 8] int32."""
+    w = x[:, 0::2] | (x[:, 1::2] << 16)
+    return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
+
+
+@lru_cache(maxsize=None)
+def _consts(spec: FieldSpec, device) -> tuple:
+    """p and -p^-1 mod 2^256 as [16] int64 limbs, and the column of each
+    of the 256 limb products (i + j), on `device`."""
+    limbs = (torch.tensor(_limbs(v, 16, _NL16), dtype=torch.int64, device=device)
+             for v in (spec.p, -pow(spec.p, -1, spec.r) % spec.r))
+    col = torch.arange(_NL16, device=device)
+    return (*limbs, (col[:, None] + col[None, :]).reshape(-1))
+
+
+def _convolve(x: torch.Tensor, y: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """out[:, k] = sum over i + j = k of x[:, i] * y[:, j] (y[j] for a
+    [16] row): x and y [N, 16] -> [N, 31]."""
+    prod = x[:, :, None] * (y[:, None, :] if y.dim() == 2 else y)
+    out = torch.zeros((x.shape[0], 2 * _NL16 - 1), dtype=torch.int64, device=x.device)
+    return out.index_add_(1, cols, prod.reshape(x.shape[0], _NL16 * _NL16))
+
+
+def _ripple(x: torch.Tensor, borrow: bool) -> torch.Tensor:
+    """Limbs in [0, 2^16] (unit carries left) or [-1, 2^16) (unit borrows
+    left) -> exact 16-bit limbs, the carry or borrow out of the top
+    dropped.  A limb takes a carry (borrow) when the nearest limb below it
+    that does not pass one on (0xFFFF for a carry, 0 for a borrow) makes
+    one (2^16, or -1): one cummax over the limb axis."""
+    n, width = x.shape
+    idx = torch.arange(width, device=x.device).expand(n, width)
+    stop = torch.where(x == (0 if borrow else _M16), -1, idx).cummax(dim=1).values
+    below = torch.nn.functional.pad(stop[:, :-1], (1, 0), value=-1)
+    made = x == (-1 if borrow else _M16 + 1)
+    take = (made.gather(1, below.clamp(min=0)) & (below >= 0)).to(torch.int64)
+    return (x - take if borrow else x + take) & _M16
+
+
+def _carry(x: torch.Tensor, passes: int) -> torch.Tensor:
+    """Limbs >= 0 -> exact 16-bit limbs of the value mod 2^(16 width).
+    Each pass moves every limb's bits above 16 into the next limb; limbs
+    below 2^(16 + 16 k) need k + 1 passes to be left at most 2^16."""
+    for _ in range(passes):
+        c = x >> 16
+        x = x & _M16
+        x[:, 1:] += c[:, :-1]
+    return _ripple(x, borrow=False)
+
+
+def _signed(x: torch.Tensor) -> torch.Tensor:
+    """Limbs in (-2^16, 2^16) -> exact 16-bit limbs of the value mod
+    2^(16 width): a negative value wraps."""
+    c = x >> 16
+    x = x & _M16
+    x[:, 1:] += c[:, :-1]
+    return _ripple(x, borrow=True)
+
+
+def _reduce_once(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """t - p where t >= p, else t: t [N, 16] exact limbs of a value < 2p."""
+    d = _signed(torch.nn.functional.pad(t - p, (0, 1)))
+    return torch.where(d[:, _NL16:] == 0, d[:, :_NL16], t)
+
+
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p."""
-    s = _carry16(_split16(a) + _split16(b))   # < 2p < 2^255: no carry out
-    return _join16(_cond_sub_p(spec, s))
+    if not _vectorised(a):
+        s = _carry16(_split16(a) + _split16(b))   # < 2p < 2^255: no carry out
+        return _join16(_cond_sub_p(spec, s))
+    s = _carry(_rows16(a) + _rows16(b), 1)
+    return _rows32(_reduce_once(_consts(spec, a.device)[0], s))
 
 
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p."""
-    d, borrow = _sub_borrow(_split16(a), _split16(b))
-    plus_p = _carry16(d + _p16(spec, a.device)[:, None])
-    return _join16(torch.where((borrow > 0)[None], plus_p, d))
+    if not _vectorised(a):
+        d, borrow = _sub_borrow(_split16(a), _split16(b))
+        plus_p = _carry16(d + _p16(spec, a.device)[:, None])
+        return _join16(torch.where((borrow > 0)[None], plus_p, d))
+    d = _signed(torch.nn.functional.pad(_rows16(a) - _rows16(b), (0, 1)))
+    plus_p = _carry(d[:, :_NL16] + _consts(spec, a.device)[0], 1)
+    return _rows32(torch.where(d[:, _NL16:] != 0, plus_p, d[:, :_NL16]))
 
 
 def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -160,9 +265,22 @@ def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a * b * 2^-256 mod p: CIOS over 16-bit limbs, the
-    accumulator T [17, N] kept redundant (limbs < 2^23) as in
-    tpu/mont.py:mont_mul."""
+    """Montgomery product a * b * 2^-256 mod p.  The limb loop keeps the
+    accumulator T [17, N] redundant (limbs < 2^23) as tpu/mont.py:mont_mul;
+    the vectorised form takes T = a * b (columns below 2^36), m = T *
+    (-p^-1) mod 2^256 (columns below 2^56: four passes), then (T + m p) /
+    2^256 < 2p (below 2^38: three passes) and one conditional
+    subtraction."""
+    if not _vectorised(a):
+        return _mont_mul_loop(spec, a, b)
+    p, np_, cols = _consts(spec, a.device)
+    T = _convolve(_rows16(a), _rows16(b), cols)
+    m = _carry(_convolve(T[:, :_NL16], np_, cols)[:, :_NL16], 4)
+    U = _carry(torch.nn.functional.pad(T + _convolve(m, p, cols), (0, 2)), 3)
+    return _rows32(_reduce_once(p, U[:, _NL16:2 * _NL16]))
+
+
+def _mont_mul_loop(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     A, B = _split16(a), _split16(b)
     n = A.shape[1]
     pvec = _p16(spec, a.device)[:, None]

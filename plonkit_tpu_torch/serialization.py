@@ -375,6 +375,25 @@ def save_crs_g1_limbs(filename: str, x, y, inf, g2_points) -> None:
             write_g2(f, p)
 
 
+class CrsLimbs:
+    """An SRS held as canonical limb rows (x, y [N, 8] uint32, inf [N]
+    bool: load_crs_g1_limbs's layout) and its G2 points: what
+    api.crs_lagrange_form makes.  It reads like a CrsHandle (num_g1,
+    g1_limbs, g2_monomial_bases) and writes itself with
+    save_crs_g1_limbs; no python int per point is made."""
+
+    def __init__(self, x, y, inf, g2_monomial_bases):
+        self.x, self.y, self.inf = x, y, inf
+        self.num_g1 = x.shape[0]
+        self.g2_monomial_bases = g2_monomial_bases
+
+    def g1_limbs(self, count: int = None):
+        return self.x[:count], self.y[:count], self.inf[:count]
+
+    def save(self, filename: str):
+        save_crs_g1_limbs(filename, self.x, self.y, self.inf, self.g2_monomial_bases)
+
+
 class CrsHandle:
     """Lazy SRS accessor: parses the header/G2 eagerly (tiny) and exposes the
     G1 section either as numpy limb arrays (fast path, for the MSM bases)

@@ -4,7 +4,8 @@ with `--backend cpu`, against the JAX package's CLI with `--backend host`
 run in the same test: the same files, byte for byte.  Both CLIs run in
 this process except where an exit code is the point; the SRS is the
 port's `setup -p 10`, which must equal the first 2^10 points of the in-repo
-tau = 42 key.  Also: the checks on user data that the port raises as
+tau = 42 key, and `dump-lagrange` must not read the key as python points
+(Crs.load).  Also: the checks on user data that the port raises as
 ValueError hold under `python -O`."""
 
 import json
@@ -25,7 +26,7 @@ from plonkit_tpu_torch.api import SetupForProver
 from plonkit_tpu_torch.frontend.r1cs import write_r1cs_bin
 from plonkit_tpu_torch.frontend.synthetic import synth_circuit
 from plonkit_tpu_torch.frontend.witness import load_witness_from_bin, write_witness_bin
-from plonkit_tpu_torch.serialization import CrsHandle
+from plonkit_tpu_torch.serialization import Crs, CrsHandle
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "scratch", "recursive_r22")
@@ -61,6 +62,10 @@ def run_port_cli(args, cwd, prelude=""):
     return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
 
 
+def _no_crs_load(*args, **kwargs):
+    raise AssertionError("dump-lagrange read the key as python points (Crs.load)")
+
+
 @pytest.fixture(scope="module")
 def out(tmp_path_factory):
     """Every command once, each CLI writing its own files into one dir."""
@@ -75,7 +80,10 @@ def out(tmp_path_factory):
         run("export-verification-key", "-m", key, "-c", CIRCUIT, "-v", p(f"{tag}_vk.bin"))
         run("prove", "-m", key, "-c", CIRCUIT, "-w", WITNESS, "-p", p(f"{tag}_proof.bin"),
             "-j", p(f"{tag}_proof.json"), "-i", p(f"{tag}_public.json"))
-        run("dump-lagrange", "-m", key, "-l", p(f"{tag}_lagrange.key"), "-c", CIRCUIT)
+        with pytest.MonkeyPatch.context() as mp:
+            if run is port:             # the port reads the key as limb rows
+                mp.setattr(Crs, "load", _no_crs_load)
+            run("dump-lagrange", "-m", key, "-l", p(f"{tag}_lagrange.key"), "-c", CIRCUIT)
         run("generate-verifier", "-v", p(f"{tag}_vk.bin"), "-s", p(f"{tag}_verifier.sol"))
     with open(WITNESS) as f:
         write_witness_bin([int(v) for v in json.load(f)], p("witness.wtns"))
@@ -127,6 +135,9 @@ def test_prove_from_wtns_gives_the_same_bytes(out):
 
 
 def test_dump_lagrange_equals_jax_and_prove_l_gives_the_same_bytes(out):
+    """The port's `--backend cpu dump-lagrange` (the plain K14 and K15 over
+    the key's limb rows: the fixture makes Crs.load raise while it runs)
+    writes the JAX package's key, and `prove -l` with it the proof."""
     assert read(out, "port_lagrange.key") == read(out, "jax_lagrange.key")
     assert read(out, "port_proof_l.bin") == read(out, "port_proof.bin")
 

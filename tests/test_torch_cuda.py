@@ -512,3 +512,43 @@ def test_ntt_mxu_transforms_match_butterflies(card, log_n):
     assert torch.equal(ntt_mxu.coset_ntt_mxu(x), ntt.coset_ntt(x))
     assert torch.equal(ntt_mxu.coset_intt_mxu(x), ntt.coset_intt(x))
     assert torch.equal(ntt_mxu.coset_lde_mxu(c, 4), ntt.coset_lde(c, 4))
+
+
+def test_group_ntt_kernels_match_plain(card):
+    """K14 g1_butterfly and K15 g1_scale against their plain versions on the
+    card, Jacobian rows limb for limb (lo, hi or both at infinity, lo =
+    [w]hi, lo = -[w]hi, w = 0 and 1 planted), then the Lagrange form of 64
+    SRS points made on the card equal to the CPU's."""
+    from plonkit_tpu_torch.fields import FR_MODULUS
+    from plonkit_tpu_torch.gpu import group_ntt
+    n = 64
+    pts = dev_srs_g1(2 * n, 42)
+    rng = np.random.default_rng(23)
+    w = [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS for _ in range(n)]
+    w[5], w[6] = 1, 0
+    jac = ec.jacobian_from_affine(ec.affine_from_host(pts, card))
+    p = mk.padd(jac, tuple(a.roll(1, 0).contiguous() for a in jac))     # Z != 1
+    lo = tuple(a[:n].clone() for a in p)
+    hi = tuple(a[n:].contiguous() for a in p)
+    wr = mont.to_tensor(mont.FR.to_limbs_np(w), card)
+    for a in lo:
+        a[0], a[2] = 0, 0                                   # lo infinite
+    for a in hi:
+        a[1], a[2] = 0, 0                                   # hi infinite, both
+    t3 = group_ntt.g1_butterfly_plain(ec.infinity(n, card), hi, wr)[0]
+    for a, b, c in zip(lo, t3, ec.neg(t3)):
+        a[3], a[4] = b[3], c[4]                             # lo = [w]hi, lo = -[w]hi
+    before = dict(group_ntt.launches)
+    got = group_ntt.g1_butterfly(lo, hi, wr)
+    want = group_ntt.g1_butterfly_plain(lo, hi, wr)
+    assert all(torch.equal(g, x) for gs, xs in zip(got, want) for g, x in zip(gs, xs))
+    assert all(torch.equal(g, x) for g, x in zip(group_ntt.g1_scale(hi, 2 ** 255 + 3),
+                                                  group_ntt.g1_scale_plain(hi, 2 ** 255 + 3)))
+    assert group_ntt.launches == {"g1_butterfly": before["g1_butterfly"] + 1,
+                                  "g1_scale": before["g1_scale"] + 1}
+    x, y = (mont.FQ.to_limbs_np([q[c] for q in pts[:n]]) for c in (0, 1))
+    inf = np.zeros(n, dtype=bool)
+    on_card = group_ntt.group_intt(x, y, inf, card)
+    assert group_ntt.launches["g1_butterfly"] == before["g1_butterfly"] + 1 + 6
+    assert all(np.array_equal(a, b)
+               for a, b in zip(on_card, group_ntt.group_intt(x, y, inf, "cpu")))

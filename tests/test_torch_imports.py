@@ -33,7 +33,7 @@ for name in names:
     importlib.import_module(name)
 missing = {"plonkit_tpu_torch." + m for m in (
     "cli", "__main__", "solidity", "solvm", "contract", "trace_summary", "frontend.witness",
-    "gpu.fixed_base",
+    "gpu.fixed_base", "gpu.group_ntt", "gpu.plain_forms",
     "gpu.ntt_mxu", "plonk.extended",
     "recursive", "recursive.aggregation", "recursive.batch", "recursive.cs",
     "recursive.ec_gadget", "recursive.franklin", "recursive.nonnative", "recursive.rescue",
