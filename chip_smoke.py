@@ -144,13 +144,14 @@ Phases, each printing a JSON line with its wall seconds:
    domain): its recursive_vk.bin must equal that fixture's, made by the
    JAX package; and export-recursive-verification-key -c 5 -i 2 (4,395,827
    gates, a 2^23 domain), the vk of phase 10's aggregate, which no package
-   had made before (phase 10 verifies with it).  Phases 7, 8, 9 and 10
-   run at the same time, and so do the calls of each that need no file
-   of another: their seconds are wall times of processes that share the
-   host and the card;
+   had made before (phase 10 verifies with it).  Phases 7, 8, phase 9's
+   -c 5 export and phase 10 run at the same time, and so do the calls of
+   each that need no file of another; the rest of phase 9 runs after
+   phase 15, beside phases 12-14: their seconds are wall times of
+   processes that share the host and the card;
 10. recursive path in this process, five proofs at a 2^23 domain, started
    as soon as phase 7 has proved the inner proofs, beside the CLI
-   processes of phases 7-9 (its host stage times are taken under their
+   processes of phases 7-8 and phase 9's -c 5 export (its host stage times are taken under their
    contention): prove_aggregation of scratch/recursive_r22/proof_{0,1}.bin
    (the JAX package's) and phase 7's proof_2.bin ... proof_4.bin under
    torch.profiler, with its gate count (4,395,827, from the port's log
@@ -185,7 +186,8 @@ Phases, each printing a JSON line with its wall seconds:
    proof's two inputs, as generate-recursive-verifier -i 2 renders it,
    must revert "bad input count" on the aggregate;
 12. poseidon (phases 12-14 run after phase 10's split check and before
-   phase 11, so that phases 1-11 measure as before): the Poseidon hash
+   phase 11, beside the one- and two-proof calls of phase 9 and phase
+   14's ranks, whose card work may overlap phases 12-13's): the Poseidon hash
    chain of scripts/bench_prove.py (poseidon_chain_circuit(20):
    454 circomlib Poseidon(2) hashes, ~1,047,379 gates, a 2^20 domain):
    SetupForProver, make_verification_key, prove (then a warm prove) and
@@ -214,7 +216,8 @@ Phases, each printing a JSON line with its wall seconds:
    bit for bit; the synthetic chain at 2^16 (n1 = n2 = 2^8) proved on the
    mesh, every commitment through DistributedMSMContext, gives the
    single-device vk.bin and proof.bin.  The ranks load the libraries
-   phase 1 built: none is rebuilt;
+   phase 1 built: none is rebuilt.  They start with phase 12, while it
+   sets up on the host;
 15. ntt_engines (after phase 10's split check, before phase 12): both NTT
    engines on the same random vectors, the butterflies (gpu/ntt.py, K3/K5)
    and the tensor cores (gpu/ntt_mxu.py, K9-K11): ntt and intt at 2^20,
@@ -406,8 +409,10 @@ def ptxas_by_kernel(report: str) -> dict:
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            short = re.search(r"(?<=\d)([a-z_]+_kernel)E", m.group(1))
-            cur = short.group(1) if short else m.group(1)
+            # the kernel's name: the one after its own length in the mangling
+            cur = next((name for size, name in re.findall(r"(?=(\d+)([A-Za-z_]\w*?_kernel)[A-Z])",
+                                                          m.group(1))
+                        if int(size) == len(name)), m.group(1))
             out[cur] = {"spill_bytes": 0}
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -1089,29 +1094,114 @@ GROUP_NTT_CHECK_LANES = 1 << 12   # lanes of K14 / K15 held against their plain 
 MONT_SQR_OPS = 2 * (36 + 64) + 8
 # the point operations of ec.cuh with their squarings at their own cost:
 # dbl-2009-l 2M + 5S, add-2007-bl 12M + 4S, and the add that takes its
-# doubling fallback after 6M + 2S (T[2] = T[1] + P of the ladder's table)
+# doubling fallback after 6M + 2S (T[2] = T[1] + P of the unsigned 4-bit
+# ladder's table, the GLV ladder's forerunner)
 DBL_OPS = 2 * MONT_MUL_OPS + 5 * MONT_SQR_OPS
 ADD_OPS = 12 * MONT_MUL_OPS + 4 * MONT_SQR_OPS
 TABLE_OPS = 13 * ADD_OPS + 6 * MONT_MUL_OPS + 2 * MONT_SQR_OPS + DBL_OPS
+# K14 splits its twiddle on the card: 100 wide 32 x 32 products (8 x 3, 8 x
+# 5, 2 x 2, 4 x 4, 2 x 4 and 4 x 2 limbs), two multiplies each
+GLV_SPLIT_OPS = 2 * (8 * 3 + 8 * 5 + 2 * 2 + 4 * 4 + 2 * 4 + 4 * 2)
+NAF_WIDTH = 5      # odd digits |d| <= 15: the entries of a table P, 3P, ..., 15P
 
 
-def _ladder_ops(scalars: np.ndarray, glv: bool) -> np.ndarray:
-    """32-bit multiplies of [s]P for each [8] uint32 canonical scalar row:
-    none for 0 or 1, else the 4-bit window table, four doublings a window
-    below the top non-zero one and one add for each non-zero digit there
-    (csrc/group_ntt.cu's ladder).  With `glv`, the work the function
-    needs with BN254's endomorphism, phi(x, y) = (beta x, y) = [lambda]P:
-    s = k1 + k2 lambda with halves of about 127 bits takes half the
-    doublings, the same count of window adds, and the table of phi(P) at
-    one product an entry besides P's."""
+def _unsigned_glv_ops(scalars: np.ndarray) -> np.ndarray:
+    """32-bit multiplies that [s]P needs for each [8] uint32 canonical
+    scalar row, counted from the unsigned 4-bit ladder that the GLV ladder
+    replaced, with BN254's endomorphism (GLV), phi(x, y) = (beta x, y) =
+    [lambda]P: none for 0 or 1, else the unsigned ladder's 15-entry table
+    and phi of its entries (one product each), half its doublings (s = k1
+    + k2 lambda with halves of about 127 bits) and one add for each
+    non-zero 4-bit digit below the top one.  The yardstick that the
+    unsigned ladder's own shares were read against."""
     shifts = np.arange(0, 32, 4, dtype=np.uint64)
     digits = ((scalars.astype(np.uint64)[:, :, None] >> shifts) & 15).reshape(-1, 64)
     nonzero = digits != 0
     top = np.where(nonzero.any(axis=1), 63 - np.argmax(nonzero[:, ::-1], axis=1), -1)
     adds = nonzero.sum(axis=1) - (top >= 0)
-    doublings = 4 * np.maximum(top, 0) // (2 if glv else 1)
-    ops = (TABLE_OPS + 15 * MONT_MUL_OPS * glv + doublings * DBL_OPS + adds * ADD_OPS)
+    doublings = 4 * np.maximum(top, 0) // 2
+    ops = TABLE_OPS + 15 * MONT_MUL_OPS + doublings * DBL_OPS + adds * ADD_OPS
     return np.where((top <= 0) & (digits[:, 0] <= 1), 0, ops)
+
+
+def _naf_digits(mags: list, device) -> tuple:
+    """The width-5 NAF of each magnitude below 2^128, for all at once on
+    `device`: its non-zero digits and its top digit's position (-1 for 0).
+    Bit-serial, k -> k - d where k is odd, d = k mods 32, then a shift (d <
+    0 leaves a carry five bits up)."""
+    import torch
+    n = len(mags)
+    raw = np.frombuffer(b"".join(m.to_bytes(17, "little") for m in mags), np.uint8)
+    bits = np.unpackbits(raw.reshape(n, 17).T, axis=0, bitorder="little")    # [136, n]
+    bits = torch.from_numpy(np.concatenate([bits, np.zeros((NAF_WIDTH, n), np.uint8)]))
+    bits = bits.to(device)
+    carry, skip = (torch.zeros(n, dtype=torch.uint8, device=device) for _ in range(2))
+    count = torch.zeros(n, dtype=torch.int64, device=device)
+    top = torch.full((n,), -1, dtype=torch.int64, device=device)
+    for i in range(17 * 8):
+        win = carry + sum(bits[i + j] << j for j in range(NAF_WIDTH))
+        free = skip == 0
+        odd = free & (win & 1 == 1)
+        count += odd
+        top[odd] = i
+        carry = torch.where(odd, win >> (NAF_WIDTH - 1),
+                            torch.where(free, (bits[i] + carry) >> 1, carry))
+        skip = torch.where(odd, NAF_WIDTH - 1, torch.where(free, 0, skip - 1)).to(torch.uint8)
+    return count.cpu().numpy(), top.cpu().numpy()
+
+
+def _least_glv_ops(halves: list, split: bool) -> np.ndarray:
+    """32-bit multiplies of the least work known for [k]P, for each split
+    k = k1 + k2 lambda (`halves`, None for k = 1, which needs none): the
+    odd multiples P, ..., 15P (one doubling, 7 adds) and phi's x of the 8
+    (one product each), then the width-5 NAFs of |k1| and |k2| over them:
+    a doubling for each position below the higher top digit, an add for
+    each non-zero digit but the first; with `split` the split's products.
+    Each lane's own NAF: a warp whose lanes hold distinct scalars cannot
+    share their additions, which is what the kernels' regular ladder
+    pays for (K15's scalar is the same in every lane)."""
+    real = [h for h in halves if h is not None]
+    count, top = _naf_digits([abs(h[0]) for h in real] + [abs(h[1]) for h in real], DEVICE)
+    (c1, c2), (t1, t2) = np.split(count, 2), np.split(top, 2)
+    ops = (DBL_OPS + 7 * ADD_OPS + 8 * MONT_MUL_OPS + GLV_SPLIT_OPS * split
+           + np.maximum(np.maximum(t1, t2), 0) * DBL_OPS
+           + np.maximum(c1 + c2 - 1, 0) * ADD_OPS)
+    out = np.zeros(len(halves), np.int64)
+    out[[h is not None for h in halves]] = ops
+    return out
+
+
+def _glv_ladder_ops(halves: list, split: bool) -> int:
+    """32-bit multiplies of the kernels' own GLV ladder (csrc/group_ntt.cu)
+    over the split scalars `halves` (None for k = 1, which takes none): its
+    table (one doubling, 7 adds), the windows below the top one (four
+    doublings and two adds each) and the top one's add, a product by beta
+    at each of the second half's entries, an add for each even half (and a
+    product by beta if the second half is even), and with `split` the
+    split's products."""
+    from plonkit_tpu_torch.gpu.group_ntt import GLV_WINDOWS, TABLE
+    ladder = (DBL_OPS * (1 + 4 * (GLV_WINDOWS - 1)) + GLV_WINDOWS * MONT_MUL_OPS
+              + ADD_OPS * (TABLE - 1 + 1 + 2 * (GLV_WINDOWS - 1)) + GLV_SPLIT_OPS * split)
+    total = 0
+    for h in halves:
+        if h is not None:
+            even1, even2 = h[0] & 1 == 0, h[1] & 1 == 0
+            total += ladder + ADD_OPS * (even1 + even2) + MONT_MUL_OPS * even2
+    return total
+
+
+def _glv_bounds(bytes_moved: int, least: int, unsigned: int, ladder: int) -> dict:
+    """The K14 / K15 row's other yardsticks beside bound_ms (the least work
+    known): the unsigned ladder's GLV count and the kernels' own ladder."""
+    def ms(ops):
+        return max(bytes_moved / HBM_BYTES_PER_S, ops / INT32_MUL_PER_S) * 1e3
+    return {"bound_unsigned_ms": ms(unsigned), "bound_unsigned_int32_muls": unsigned,
+            "ladder_bound_ms": ms(ladder), "ladder_int32_muls": ladder,
+            "bound_note": f"bound_ms: the least work known for [w]P, GLV with each lane's "
+                          f"width-5 NAFs over an 8-entry table ({least} multiplies); "
+                          f"bound_unsigned_ms: the GLV count of the unsigned 4-bit "
+                          f"ladder's table and adds ({unsigned}); ladder_bound_ms: the kernels' regular GLV ladder, "
+                          f"one add a half for each of 32 windows ({ladder})"}
 
 
 def _group_ntt_rows(ctx) -> list:
@@ -1124,11 +1214,12 @@ def _group_ntt_rows(ctx) -> list:
     (K14) or 256th (K15) lane of it, 2^12 lanes, is held limb for limb
     against the plain version run on those lanes' inputs (the plain ladder
     is some hundred sequential point operations whatever the lanes);
-    plain_ms is that call's.  bound_ms counts what [w]P needs (_ladder_ops
-    with glv); ladder_bound_ms the kernel's own ladder, squarings at their
-    own cost in both."""
+    plain_ms is that call's.  bound_ms counts the least work known for
+    [w]P with GLV (_least_glv_ops, this run's scalars); beside it the
+    unsigned ladder's GLV count (_unsigned_glv_ops) and the kernels' own ladder (_glv_ladder_ops),
+    squarings at their own cost in all three."""
     import torch
-    from plonkit_tpu_torch.curve import g1_mul, g1_neg
+    from plonkit_tpu_torch.curve import g1_mul, g1_neg, glv_split
     from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
     from plonkit_tpu_torch.gpu import ec, field_kernels as fk, group_ntt, msm_kernels as mk, ntt
     from plonkit_tpu_torch.gpu.mont import FR, to_numpy
@@ -1163,40 +1254,41 @@ def _group_ntt_rows(ctx) -> list:
     infinite = {"lo - [w]hi at lane 1024 (lo = [w]hi)": bool((got[5][1024 // stride] == 0).all()),
                 "lo + [w]hi at lane 1280 (lo = -[w]hi)": bool((got[2][1280 // stride] == 0).all())}
     scalars = to_numpy(tw)
-    fn_ops, ladder_ops = (int(_ladder_ops(scalars, glv).sum()) + 2 * ADD_OPS * half
-                          for glv in (True, False))
+    halves = [None if k == 1 else glv_split(k) for k in FR.from_limbs_np(scalars)]
+    butterfly_adds = 2 * ADD_OPS * half
+    least = int(_least_glv_ops(halves, True).sum()) + butterfly_adds
     bytes_moved = half * (4 * POINT_BYTES + 32)
     k14 = _row_of("K14 g1_butterfly", half,
                   time_ms(lambda: group_ntt.g1_butterfly(lo, hi, tw), 3), plain_ms,
                   _mismatches(got, want) + sum(not v for v in infinite.values()),
-                  _max_abs_err(got, want), bytes_moved, fn_ops,
+                  _max_abs_err(got, want), bytes_moved, least,
                   compared_elements=GROUP_NTT_CHECK_LANES, plain_elements=GROUP_NTT_CHECK_LANES,
                   planted_infinity=infinite,
-                  ladder_bound_ms=max(bytes_moved / HBM_BYTES_PER_S,
-                                      ladder_ops / INT32_MUL_PER_S) * 1e3,
+                  **_glv_bounds(bytes_moved, least,
+                                int(_unsigned_glv_ops(scalars).sum()) + butterfly_adds,
+                                _glv_ladder_ops(halves, True) + butterfly_adds),
                   note=f"ms and bound at 2^{MAIN_LOG2 - 1} butterflies (stage 0 of a "
                        f"2^{MAIN_LOG2}-point inverse transform); the comparison and "
-                       f"plain_ms on one lane in {stride} of the "
-                       f"launch kept; bound_ms with GLV, ladder_bound_ms the kernel's ladder")
+                       f"plain_ms on one lane in {stride} of the launch kept")
     inv_n = fr_inv(n)
     at = torch.arange(0, n, n // GROUP_NTT_CHECK_LANES, device=DEVICE)
     got = tuple(c[at] for c in group_ntt.g1_scale(pts, inv_n))
     want, plain_ms = _timed_once(lambda: group_ntt.g1_scale_plain(
         tuple(a[at] for a in pts), inv_n))
-    inv_limbs = FR.to_limbs_np([inv_n])
-    fn_ops, ladder_ops = (int(_ladder_ops(inv_limbs, glv)[0]) * n for glv in (True, False))
+    halves = [glv_split(inv_n)]
+    least = int(_least_glv_ops(halves, False)[0]) * n
     bytes_moved = n * 2 * POINT_BYTES + 32
     k15 = _row_of("K15 g1_scale", n, time_ms(lambda: group_ntt.g1_scale(pts, inv_n), 3),
                   plain_ms, _mismatches(got, want), _max_abs_err(got, want),
-                  bytes_moved, fn_ops, compared_elements=GROUP_NTT_CHECK_LANES,
+                  bytes_moved, least, compared_elements=GROUP_NTT_CHECK_LANES,
                   plain_elements=GROUP_NTT_CHECK_LANES,
                   infinite_lanes_kept=bool((got[2][[256 // stride // 2, 768 // stride // 2]] == 0).all()),
-                  ladder_bound_ms=max(bytes_moved / HBM_BYTES_PER_S,
-                                      ladder_ops / INT32_MUL_PER_S) * 1e3,
+                  **_glv_bounds(bytes_moved, least,
+                                int(_unsigned_glv_ops(FR.to_limbs_np([inv_n]))[0]) * n,
+                                _glv_ladder_ops(halves, False) * n),
                   note=f"ms and bound at the 2^{MAIN_LOG2} points of a transform's 1/n; "
                        f"the comparison and plain_ms on one lane in {n // GROUP_NTT_CHECK_LANES}"
-                       f" of the launch kept; bound_ms with GLV, ladder_bound_ms the "
-                       f"kernel's ladder")
+                       f" of the launch kept")
     if not k15["infinite_lanes_kept"]:
         k15["mismatches"] += 1
     return [k14, k15]
@@ -2437,31 +2529,37 @@ def main() -> int:
         del setup
         torch.cuda.empty_cache()
         built = _build_snapshot()
-        # phases 7, 8 and 9 in CLI processes; once phase 7 has proved the
-        # inner proofs, phase 10 proves their aggregate in this process
-        with ThreadPoolExecutor(5) as pool:
+        # phases 7, 8 and 9's five-proof vk in CLI processes; once phase 7
+        # has proved the inner proofs, phase 10 proves their aggregate in
+        # this process
+        with ThreadPoolExecutor(3) as pool:
             full = pool.submit(phase_cli_full, tmp, key, circuit, vk_bytes, proof_bytes,
                                lagrange_sha256)
-            rec = pool.submit(phase_recursive_cli, tmp, key)
-            pair_vk = pool.submit(phase_recursive_vk_pair, tmp, key)
             agg_vk = pool.submit(phase_recursive_vk_agg, tmp, key)
             cli64 = pool.submit(phase_cli, tmp, phase_inner_proofs(tmp), cpu_calls)
             launches_recursive, agg = phase_recursive(tmp, key, agg_vk)
-            for phase in (cli64, full, rec, pair_vk):
+            for phase in (cli64, full):
                 phase.result()
-        if _build_snapshot() != built:
-            raise AssertionError("a CLI process rebuilt a kernel library")
         del circuit
         torch.cuda.empty_cache()
         phase_split_ntt()
         torch.cuda.empty_cache()
         phase_ntt_engines()
         torch.cuda.empty_cache()
-        pos_setup, pos_circuit, pos_vk, pos_proof = phase_poseidon(tmp, key)
-        launches_mesh = phase_mesh(pos_setup, pos_circuit, pos_vk, pos_proof)
-        del pos_setup, pos_circuit
-        torch.cuda.empty_cache()
-        phase_mesh_ranks(tmp, key)
+        # the rest of phase 9 and phase 14's ranks in other processes,
+        # beside phase 12's host setup, which leaves the other cores idle
+        with ThreadPoolExecutor(3) as pool:
+            rec = pool.submit(phase_recursive_cli, tmp, key)
+            pair_vk = pool.submit(phase_recursive_vk_pair, tmp, key)
+            ranks = pool.submit(phase_mesh_ranks, tmp, key)
+            pos_setup, pos_circuit, pos_vk, pos_proof = phase_poseidon(tmp, key)
+            launches_mesh = phase_mesh(pos_setup, pos_circuit, pos_vk, pos_proof)
+            del pos_setup, pos_circuit
+            torch.cuda.empty_cache()
+            for phase in (rec, pair_vk, ranks):
+                phase.result()
+        if _build_snapshot() != built:
+            raise AssertionError("a CLI process rebuilt a kernel library")
         phase_contract(tmp, agg, agg_vk.result())
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -61,7 +61,7 @@ __device__ __forceinline__ void store_jac(uint32_t* x, uint32_t* y, uint32_t* z,
 }
 
 // dbl-2009-l, 2M + 5S (a = 0); infinity (Z = 0) stays Z = 0
-__device__ __noinline__ Jac jac_double(const Jac& p, const FieldParams& f) {
+__device__ __forceinline__ Jac jac_double_inline(const Jac& p, const FieldParams& f) {
     const Fe A = fe_mont_mul(p.x, p.x, f);
     const Fe B = fe_mont_mul(p.y, p.y, f);
     const Fe C = fe_mont_mul(B, B, f);
@@ -81,8 +81,15 @@ __device__ __noinline__ Jac jac_double(const Jac& p, const FieldParams& f) {
     return r;
 }
 
-// complete Jacobian + Jacobian: add-2007-bl with the fallbacks above
-__device__ __noinline__ Jac jac_add(const Jac& p, const Jac& q, const FieldParams& f) {
+// The MSM kernels call the point formulas out of line (one copy of their
+// code a kernel); group_ntt.cu's ladder inlines them.
+__device__ __noinline__ Jac jac_double(const Jac& p, const FieldParams& f) {
+    return jac_double_inline(p, f);
+}
+
+// complete Jacobian + Jacobian: add-2007-bl with the fallbacks above (the
+// doubling out of line: P + P is rare)
+__device__ __forceinline__ Jac jac_add_inline(const Jac& p, const Jac& q, const FieldParams& f) {
     if (fe_is_zero(q.z)) return p;
     if (fe_is_zero(p.z)) return q;
     const Fe Z1Z1 = fe_mont_mul(p.z, p.z, f);
@@ -102,6 +109,10 @@ __device__ __noinline__ Jac jac_add(const Jac& p, const Jac& q, const FieldParam
     o.y = fe_sub(fe_mont_mul(r, fe_sub(V, o.x, f), f), fe_mont_mul(S1, HHH, f), f);
     o.z = fe_mont_mul(fe_mont_mul(p.z, q.z, f), H, f);
     return o;
+}
+
+__device__ __noinline__ Jac jac_add(const Jac& p, const Jac& q, const FieldParams& f) {
+    return jac_add_inline(p, q, f);
 }
 
 // complete Jacobian + finite affine (x2, y2): madd-2007-bl with the

@@ -10,7 +10,7 @@ Points are represented as:
   G2: ((x0, x1), (y0, y1)) Fq2 coordinate pairs (c0 + c1*u); None = infinity.
 """
 
-from .fields import FQ_MODULUS as Q, fq_inv
+from .fields import FQ_MODULUS as Q, FR_MODULUS as _R, fq_inv
 
 # Generators
 G1_GEN = (1, 2)  # contrib/template.sol:68 P1()
@@ -152,6 +152,35 @@ def g1_neg(p):
 def g1_mul(p, k):
     from .fields import FR_MODULUS
     return _ec_mul(p, k % FR_MODULUS, _G1OPS)
+
+
+# BN254's endomorphism (GLV): phi(x, y) = (GLV_BETA x, y) = [GLV_LAMBDA] (x, y)
+# on G1, with GLV_BETA a cube root of unity in Fq and GLV_LAMBDA one in Fr
+# (each has two; these are a matching pair, their squares the other).
+GLV_BETA = 0x59e26bcea0d48bacd4f263f1acdb5c4f5763473177fffffe
+GLV_LAMBDA = 0xb3c4d79d41a917585bfc41088d8daaa78b17ea66b99c90dd
+# The short basis (a1, b1), (a2, b2) of {(a, b) : a + b GLV_LAMBDA = 0 mod r}
+# from the extended Euclidean algorithm on (r, GLV_LAMBDA), with a1 b2 - a2 b1
+# = r.  Both vectors are under 2^127.
+GLV_A1, GLV_B1 = 0x89d3256894d213e3, -0x6f4d8248eeb859fc8211bbeb7d4f1128
+GLV_A2, GLV_B2 = 0x6f4d8248eeb859fd0be4e1541221250b, 0x89d3256894d213e3
+# Babai rounding by precomputed constants: c1 = round(k G1 / 2^256) and c2 =
+# round(k G2 / 2^256) for the coordinates k b2 / r and -k b1 / r of (k, 0)
+# in the basis, G_i rounded to the nearest integer.
+GLV_G1 = ((GLV_B2 << 256) + _R // 2) // _R
+GLV_G2 = ((-GLV_B1 << 256) + _R // 2) // _R
+# |k1| <= (5/8)(a1 + a2) and |k2| <= (5/8)(|b1| + b2) for 0 <= k < r: each
+# c_i is off its coordinate by at most 1/2 (its rounding) + r / 2^257 (G_i's,
+# scaled by k < r < 2^254), under 5/8.  Both bounds are under 2^126.13.
+GLV_BOUND = (5 * max(GLV_A1 + GLV_A2, -GLV_B1 + GLV_B2) + 7) // 8
+
+
+def glv_split(k: int) -> tuple:
+    """k1, k2 with k1 + k2 GLV_LAMBDA = k (mod r) and |k1|, |k2| <=
+    GLV_BOUND, for 0 <= k < r: csrc/group_ntt.cu's glv_split in python ints."""
+    c1 = (k * GLV_G1 + (1 << 255)) >> 256
+    c2 = (k * GLV_G2 + (1 << 255)) >> 256
+    return k - c1 * GLV_A1 - c2 * GLV_A2, -c1 * GLV_B1 - c2 * GLV_B2
 
 
 def g1_is_on_curve(p):

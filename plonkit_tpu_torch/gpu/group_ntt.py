@@ -9,6 +9,13 @@ would take days at a 2^20 domain.  Here the transform stays on the device
 from the key's limb rows to the Lagrange key's; no python int per point is
 made.
 
+Both kernels multiply by a scalar k on BN254's endomorphism (GLV,
+curve.glv_split): [k]P = [k1]P + [k2]phi(P) with phi(x, y) = (beta x, y)
+and |k1|, |k2| < 2^128, each half in 32 windows of one odd signed digit in
++-{1, 3, ..., 15} (glv_recode), over a table of P, 3P, ..., 15P.  The plain
+versions below run the kernels' point operations in the kernels' order
+(scalar_mul_plain), so every output limb is theirs.
+
 Points are Jacobian triples of [N, 8] int32 Montgomery Fq rows (gpu/ec.py);
 scalars are [N, 8] int32 rows of canonical little-endian Fr limbs.  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel on the
@@ -19,64 +26,105 @@ that launched.
 import numpy as np
 import torch
 
-from ..fields import fr_inv, get_domain_omega
-from . import build, ec, field_kernels as fk, ntt as gntt
+from ..curve import GLV_BETA, glv_split
+from ..fields import FR_MODULUS, fr_inv, get_domain_omega
+from . import build, ec, field_kernels as fk, mont, ntt as gntt
 from .field_kernels import check_operands, stream_ptr
 from .fixed_base import affine_batch_to_limbs, to_affine_batch
-from .mont import FQ, FR, to_tensor
+from .mont import FQ, FR, to_numpy, to_tensor
 
 launches = {"g1_butterfly": 0, "g1_scale": 0}
 
-WINDOW = 4                      # bits a ladder window (csrc/group_ntt.cu)
-NUM_WINDOWS = 256 // WINDOW
+GLV_WINDOWS = 32        # 4-bit windows of a half, |k_i| < 2^128 (csrc/group_ntt.cu)
+TABLE = 8               # the odd multiples P, 3P, ..., 15P
 
 
-def window_digits(s: torch.Tensor) -> torch.Tensor:
-    """[N, 8] canonical scalar rows -> [N, 64] int64 4-bit window digits,
-    least significant first."""
-    w = s.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(0, 32, WINDOW, device=s.device)
-    return ((w[:, :, None] >> shifts) & ((1 << WINDOW) - 1)).reshape(s.shape[0], NUM_WINDOWS)
+def glv_recode(k: int) -> tuple:
+    """The ladder's form of a scalar 0 <= k < r: ((E1, E2), (even1, even2))
+    for the halves k1, k2 of curve.glv_split, E_i = floor(k_i / 2) + 2^127
+    and even_i = k_i is even.  With e_j the j-th nibble of E_i, sum_j (2 e_j
+    - 15) 16^j = 2 E_i - (2^128 - 1) = k_i + even_i: 32 odd signed digits a
+    half, the odd value k_i + even_i, whose extra P (or phi(P)) the ladder
+    takes off at the end.  |k_i| < 2^128 keeps E_i in [0, 2^128)."""
+    halves = glv_split(k)
+    es = tuple((h >> 1) + (1 << 127) for h in halves)
+    if not all(0 <= e < 1 << 128 for e in es):
+        raise ValueError(f"{k}: a half of its split does not fit 128 bits")
+    return es, tuple(h & 1 == 0 for h in halves)
 
 
-def scalar_mul_plain(p, digits: torch.Tensor):
-    """[s_i] p_i for every lane, by csrc/group_ntt.cu's ladder over all
-    lanes at once: a table T[d] = T[d - 1] + p (T[0] infinity, T[1] = p, up
-    to the largest digit used), then from the top window that has a non-zero
-    digit in any lane, four doublings and one complete add of T[digit] a
-    window.  A lane below its own top window holds infinity, which the
-    doublings keep and an add of T[0] leaves: so each lane's rows are the
-    kernel's, whose thread starts at its top window."""
-    n = digits.shape[0]
-    used = (digits != 0).any(dim=0).nonzero()
-    if n == 0 or used.numel() == 0:
-        return ec.infinity(n, digits.device)
-    table = [ec.infinity(n, digits.device), p]
-    for _ in range(2, int(digits.max()) + 1):
-        table.append(ec.add(table[-1], p))
-    cols = [torch.stack([t[c] for t in table]) for c in range(3)]
-    lanes = torch.arange(n, device=digits.device)
-    top = int(used.max())
-    acc = ec.infinity(n, digits.device)
-    for w in range(top, -1, -1):
-        if w < top:
-            for _ in range(WINDOW):
-                acc = ec.double(acc)
-        d = digits[:, w]
-        acc = ec.add(acc, tuple(c[d, lanes] for c in cols))
-    return acc
+def glv_scalars(ks, device) -> tuple:
+    """Python ints 0 <= k < r -> their nibbles [N, 2, 32] int64 (E1, E2,
+    least significant first) and even flags [N, 2] bool, on `device`."""
+    recoded = [glv_recode(k) for k in ks]
+    shifts = np.arange(0, 4 * GLV_WINDOWS, 4, dtype=np.uint64)
+    words = np.array([[(e >> s) & 0xFFFFFFFF for e in es for s in range(0, 128, 32)]
+                      for es, _ in recoded], dtype=np.uint64).reshape(-1, 2, 4)
+    nib = (words[:, :, shifts // 32] >> (shifts % 32)) & 15
+    even = np.array([ev for _, ev in recoded], dtype=bool).reshape(-1, 2)
+    return (torch.from_numpy(nib.astype(np.int64)).to(device),
+            torch.from_numpy(even).to(device))
+
+
+def scalar_mul_plain(p, nib: torch.Tensor, even: torch.Tensor):
+    """[k_i] p_i for every lane, by csrc/group_ntt.cu's ladder over all
+    lanes at once, from the lanes' glv_scalars: the table T[i] = (2i + 1)p
+    (one doubling D = 2p, then T[i] = T[i - 1] + D), and phi of its x; acc
+    = entry(E1's top nibble) + phi-entry(E2's), then for each lower window
+    four doublings and the complete adds of the two entries; last, -p if k1
+    is even and -phi(p) if k2 is.  An entry of nibble e is T[e - 8] for e >=
+    8, else -T[7 - e].  Every lane runs the same operations, as every
+    thread of the kernel does."""
+    n = nib.shape[0]
+    if n == 0:
+        return ec.infinity(0, nib.device)
+    d = ec.double(p)
+    table = [p]
+    for _ in range(1, TABLE):
+        table.append(ec.add(table[-1], d))
+    x, y, z = (torch.stack([t[c] for t in table]) for c in range(3))     # [8, N, 8]
+    phi_x = mont.mont_mul(FQ, x.reshape(-1, 8), FQ.const(GLV_BETA, TABLE * n, x.device))
+    phi_x = phi_x.reshape(TABLE, n, 8)
+    lanes = torch.arange(n, device=nib.device)
+
+    def entry(half: int, j: int):
+        e = nib[:, half, j]
+        i = torch.where(e >= 8, e - 8, 7 - e)
+        ey = y[i, lanes]
+        return ((phi_x if half else x)[i, lanes], torch.where((e < 8)[:, None],
+                                                              mont.neg(FQ, ey), ey), z[i, lanes])
+
+    top = GLV_WINDOWS - 1
+    acc = ec.add(entry(0, top), entry(1, top))
+    for j in range(top - 1, -1, -1):
+        for _ in range(4):
+            acc = ec.double(acc)
+        acc = ec.add(acc, entry(0, j))
+        acc = ec.add(acc, entry(1, j))
+    inf = ec.infinity(n, nib.device)
+    acc = ec.add(acc, ec.select(even[:, 0], ec.neg(p), inf))
+    return ec.add(acc, ec.select(even[:, 1], ec.neg((phi_x[0], p[1], p[2])), inf))
 
 
 # -- K14 ---------------------------------------------------------------------
 
 def g1_butterfly_plain(lo, hi, w):
-    t = scalar_mul_plain(hi, window_digits(w))
+    ks = FR.from_limbs_np(to_numpy(w))
+    if any(k >= FR_MODULUS for k in ks):
+        raise ValueError("a twiddle is not canonical: K14 takes w < r")
+    one = torch.tensor([k == 1 for k in ks], dtype=torch.bool, device=w.device)
+    t = hi
+    if not bool(one.all()):
+        t = ec.select(one, hi, scalar_mul_plain(hi, *glv_scalars(ks, w.device)))
     return ec.add(lo, t), ec.add(lo, ec.neg(t))
 
 
 def g1_butterfly(lo, hi, w):
     """K14, one radix-2 DIT stage over G1: (lo + [w]hi, lo - [w]hi) lane
-    by lane; lo and hi Jacobian triples, w [N, 8] canonical Fr rows."""
+    by lane; lo and hi Jacobian triples, w [N, 8] canonical Fr rows.  Each
+    w must be below r: the card splits it unchecked (for w >= r its
+    products overflow their limbs and the point is wrong); the plain
+    version raises ValueError."""
     check_operands(*lo, *hi, w)
     if not w.is_cuda:
         return g1_butterfly_plain(lo, hi, w)
@@ -92,29 +140,38 @@ def g1_butterfly(lo, hi, w):
 
 # -- K15 ---------------------------------------------------------------------
 
-def _scalar_row(s: int, device) -> torch.Tensor:
-    if not 0 <= s < 1 << 256:
-        raise ValueError(f"scalar {s} does not fit 256 bits")
-    return FR.const_raw(s, 1, device)
-
-
 def g1_scale_plain(p, s: int):
-    digits = window_digits(_scalar_row(s, p[0].device))
-    return scalar_mul_plain(p, digits.expand(p[0].shape[0], NUM_WINDOWS))
+    k = s % FR_MODULUS
+    if k == 1:
+        return p
+    n = p[0].shape[0]
+    nib, even = glv_scalars([k], p[0].device)
+    return scalar_mul_plain(p, nib.expand(n, 2, GLV_WINDOWS), even.expand(n, 2))
+
+
+def scale_args(s: int) -> np.ndarray:
+    """K15's scalar as its kernel argument, recoded once: [E1 (4 words), E2
+    (4 words), even1, even2, s = 1 mod r] uint32."""
+    k = s % FR_MODULUS
+    (e1, e2), (even1, even2) = glv_recode(k)
+    words = [(e >> sh) & 0xFFFFFFFF for e in (e1, e2) for sh in range(0, 128, 32)]
+    return np.array(words + [even1, even2, k == 1], dtype=np.uint32)
 
 
 def g1_scale(p, s: int):
-    """K15: [s] p lane by lane, for one scalar 0 <= s < 2^256."""
+    """K15: [s] p lane by lane, for one scalar s >= 0 (taken mod r)."""
     check_operands(*p)
-    row = _scalar_row(s, p[0].device)
+    if s < 0:
+        raise ValueError(f"scalar {s} is negative")
     if not p[0].is_cuda:
         return g1_scale_plain(p, s)
     n = p[0].shape[0]
     out = tuple(torch.empty_like(p[0]) for _ in range(3))
     if n:
+        args = scale_args(s)
         lib = build.load("group_ntt")
-        build.check(lib.plonkit_g1_scale(*(t.data_ptr() for t in (*p, row, *out)), n,
-                                         stream_ptr(p[0])), "K15 g1_scale")
+        build.check(lib.plonkit_g1_scale(*(t.data_ptr() for t in (*p, *out)), args.ctypes.data,
+                                         n, stream_ptr(p[0])), "K15 g1_scale")
         launches["g1_scale"] += 1
     return out
 

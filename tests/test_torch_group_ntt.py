@@ -2,10 +2,18 @@
 through the plain versions of K14 g1_butterfly and K15 g1_scale, exact
 bytes everywhere:
 
-- the plain K14 and K15 against the JAX package's host curve arithmetic
-  (g1_mul, g1_add, g1_neg), lane by lane after the affine conversion, on
-  seeded Jacobian lanes with the planted cases of chip_smoke.py's phase 3
-  (lo, hi or both at infinity, lo = [w]hi, lo = -[w]hi, w = 1);
+- the GLV constants: beta and lambda a matching pair ([lambda]G = (beta
+  G.x, G.y) through the port's curve), the short basis, and csrc/group_ntt.cu's
+  limbs of them; the split k = k1 + k2 lambda mod r within its bound on
+  seeded scalars, edge values and the 2^20 domain's twiddles; the signed
+  recoding rebuilding each half from odd digits in [-15, 15];
+- the plain K14 and K15 (the GLV ladder) against the JAX package's host
+  curve arithmetic (g1_mul, g1_add, g1_neg), lane by lane after the affine
+  conversion, on seeded Jacobian lanes with the planted cases of
+  chip_smoke.py's phase 3 (lo, hi or both at infinity, lo = [w]hi, lo =
+  -[w]hi, w = 0, 1 and r - 1), on random twiddles and on twiddles w^-j of
+  the 2^20 domain; the plain K14 refuses a twiddle of r or more, which the
+  card's split does not take;
 - api.crs_lagrange_form(..., device="cpu") against the JAX package's
   plonkit_tpu.api.crs_lagrange_form (its host python group NTT), the saved
   keys byte for byte, at domains 2, 4, 16 and 64, on the first points of
@@ -18,6 +26,7 @@ bytes everywhere:
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -26,10 +35,10 @@ import torch
 from plonkit_tpu import api as ref_api
 from plonkit_tpu.curve import G1_GEN, g1_add, g1_mul, g1_neg
 from plonkit_tpu.serialization import Crs as RefCrs
-from plonkit_tpu_torch import api, cli, native
+from plonkit_tpu_torch import api, cli, curve, native
 from plonkit_tpu_torch.backend import HostMSMContext
-from plonkit_tpu_torch.fields import FR_MODULUS as R, fr_inv, get_domain_omega
-from plonkit_tpu_torch.gpu import ec, group_ntt
+from plonkit_tpu_torch.fields import FQ_MODULUS as Q, FR_MODULUS as R, fr_inv, get_domain_omega
+from plonkit_tpu_torch.gpu import build, ec, group_ntt
 from plonkit_tpu_torch.gpu.mont import FR, to_tensor
 from plonkit_tpu_torch.serialization import (CrsHandle, load_crs_g1_limbs,
                                              save_crs_g1_limbs)
@@ -88,11 +97,19 @@ def foreign_key(tmp_path_factory):
     return path
 
 
-def test_plain_butterfly_equals_host_curve():
+def _twiddles(rng, n, kind):
+    if kind == "random":
+        return [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    w_inv = fr_inv(get_domain_omega(1 << 20))
+    return [pow(w_inv, int(j), R) for j in rng.integers(1, 1 << 19, size=n)]
+
+
+@pytest.mark.parametrize("kind", ["random", "domain twiddles"])
+def test_plain_butterfly_equals_host_curve(kind):
     rng = np.random.default_rng(SEED + 1)
     n = 12
     bases = [g1_mul(G1_GEN, int.from_bytes(rng.bytes(32), "little") % R) for _ in range(2 * n)]
-    w = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    w = _twiddles(rng, n, kind)
     lo, hi = bases[:n], bases[n:]
     lo[0] = None                                        # lo infinite
     hi[1] = None                                        # hi infinite
@@ -112,6 +129,13 @@ def test_plain_butterfly_equals_host_curve():
     assert affine(a)[4] is None
 
 
+@pytest.mark.parametrize("w", [R, 2 * R + 1, (1 << 256) - 1])
+def test_plain_butterfly_rejects_a_non_canonical_twiddle(w):
+    hi = jacobian([G1_GEN, G1_GEN])
+    with pytest.raises(ValueError):
+        group_ntt.g1_butterfly(hi, hi, scalar_rows([1, w]))
+
+
 @pytest.mark.parametrize("s", [0, 1, 2, 15, 16, 17, fr_inv(1 << 20), R - 1, 1 << 255])
 def test_plain_scale_equals_host_curve(s):
     rng = np.random.default_rng(SEED + 2)
@@ -121,13 +145,86 @@ def test_plain_scale_equals_host_curve(s):
     assert got == [g1_mul(p, s % R) if p is not None else None for p in pts]
 
 
+def test_glv_beta_lambda_match():
+    """phi(G) = (beta G.x, G.y) is [lambda]G, and both are primitive cube
+    roots of unity; the basis vectors are in the lattice, of determinant r
+    and under 2^127."""
+    assert curve.g1_mul(curve.G1_GEN, curve.GLV_LAMBDA) == (
+        curve.GLV_BETA * curve.G1_GEN[0] % Q, curve.G1_GEN[1])
+    assert g1_mul(G1_GEN, curve.GLV_LAMBDA) == (curve.GLV_BETA * G1_GEN[0] % Q, G1_GEN[1])
+    for root, m in ((curve.GLV_BETA, Q), (curve.GLV_LAMBDA, R)):
+        assert root != 1 and pow(root, 3, m) == 1
+    basis = ((curve.GLV_A1, curve.GLV_B1), (curve.GLV_A2, curve.GLV_B2))
+    assert all((a + b * curve.GLV_LAMBDA) % R == 0 for a, b in basis)
+    assert curve.GLV_A1 * curve.GLV_B2 - curve.GLV_A2 * curve.GLV_B1 == R
+    assert all(abs(c) < 1 << 127 for v in basis for c in v)
+    assert curve.GLV_BOUND < 1 << 127
+
+
+def _split_scalars():
+    rng = np.random.default_rng(SEED + 4)
+    w_inv = fr_inv(get_domain_omega(1 << 20))
+    return ([0, 1, 2, curve.GLV_LAMBDA, R - 1, (R - 1) // 2, (R + 1) // 2, (1 << 255) % R,
+             fr_inv(1 << 20), R - curve.GLV_LAMBDA]
+            + [int.from_bytes(rng.bytes(32), "little") % R for _ in range(2000)]
+            + [pow(w_inv, int(j), R) for j in rng.integers(0, 1 << 19, size=500)])
+
+
+def test_glv_split_within_its_bound():
+    for k in _split_scalars():
+        k1, k2 = curve.glv_split(k)
+        assert (k1 + k2 * curve.GLV_LAMBDA - k) % R == 0, k
+        assert max(abs(k1), abs(k2)) <= curve.GLV_BOUND, k
+    assert curve.glv_split(1) == (1, 0) and curve.glv_split(curve.GLV_LAMBDA) == (0, 1)
+
+
 def test_ladder_digits_and_table():
-    """window_digits reads the canonical limbs' 4-bit windows least
-    significant first."""
-    d = group_ntt.window_digits(scalar_rows([0x1234, R - 1]))
-    assert d[0, :4].tolist() == [4, 3, 2, 1] and not d[0, 4:].any()
-    v = sum(int(x) << (4 * i) for i, x in enumerate(d[1].tolist()))
-    assert v == R - 1
+    """glv_recode: each half rebuilt from 32 odd signed digits in [-15, 15]
+    (plus 1 where it is even); glv_scalars' nibbles and flags are those of
+    glv_recode; K15's kernel argument holds the same words."""
+    ks = _split_scalars()[:300]
+    for k in ks:
+        es, evens = group_ntt.glv_recode(k)
+        for h, e, even in zip(curve.glv_split(k), es, evens):
+            d = [2 * ((e >> (4 * j)) & 15) - 15 for j in range(group_ntt.GLV_WINDOWS)]
+            assert all(x % 2 == 1 and -15 <= x <= 15 for x in d)
+            assert sum(x << (4 * j) for j, x in enumerate(d)) == h + even
+            assert even == (h % 2 == 0)
+    nib, even = group_ntt.glv_scalars(ks, "cpu")
+    assert nib.shape == (len(ks), 2, group_ntt.GLV_WINDOWS)
+    for i, k in enumerate(ks):
+        es, evens = group_ntt.glv_recode(k)
+        assert [sum(int(x) << (4 * j) for j, x in enumerate(nib[i, h])) for h in (0, 1)] == list(es)
+        assert tuple(even[i].tolist()) == evens
+    words = group_ntt.scale_args(fr_inv(1 << 20))
+    (e1, e2), (even1, even2) = group_ntt.glv_recode(fr_inv(1 << 20))
+    assert [sum(int(w) << (32 * j) for j, w in enumerate(words[4 * h:4 * h + 4]))
+            for h in (0, 1)] == [e1, e2]
+    assert words[8:].tolist() == [even1, even2, 0] and group_ntt.scale_args(R + 1)[10] == 1
+
+
+def _cuda_words(src: str, name: str) -> int:
+    """The little-endian 32-bit words of the array `name` in the source, as
+    one int."""
+    body = re.search(r"\b" + name + r"\[\d+\] = \{([^}]*)\}", src).group(1)
+    words = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+    return sum(w << (32 * j) for j, w in enumerate(words))
+
+
+def test_glv_constants_in_cuda_source():
+    """csrc/group_ntt.cu's split constants and beta are curve.py's."""
+    with open(os.path.join(build.CSRC, "group_ntt.cu")) as f:
+        src = f.read()
+    assert _cuda_words(src, "g1") == curve.GLV_G1
+    assert _cuda_words(src, "g2") == curve.GLV_G2
+    assert _cuda_words(src, "a1") == curve.GLV_A1 == curve.GLV_B2
+    assert _cuda_words(src, "a2") == curve.GLV_A2
+    assert _cuda_words(src, "b1") == -curve.GLV_B1
+    beta = re.search(r"Fe glv_beta\(\) \{(.*?)return", src, re.S).group(1)
+    limbs = {int(i): int(v, 16)
+             for i, v in re.findall(r"r\.v\[(\d)\] = 0x([0-9a-f]+)u", beta)}
+    assert sum(limbs[j] << (32 * j) for j in range(8)) == curve.GLV_BETA * (1 << 256) % Q
+    assert f"kWindows = {group_ntt.GLV_WINDOWS};" in src and f"kTable = {group_ntt.TABLE};" in src
 
 
 def _key_bytes(path):
