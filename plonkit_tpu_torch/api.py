@@ -82,19 +82,24 @@ def crs_lagrange_form(crs, domain_size: int, device="cuda") -> CrsLimbs:
     (gpu/group_ntt.group_intt: K14 and K15 on the card by default, their
     plain versions for device="cpu").  `crs` is a CrsHandle (its limb rows
     are read as they are) or a Crs.  Returns a key held as limb rows, which
-    SetupForProver takes as key_lagrange_form and save() writes."""
-    if domain_size < 1 or domain_size & (domain_size - 1):
-        raise ValueError(f"domain size {domain_size} is not a power of two")
-    TorchBackend(device)                          # raises for "cuda" without a card
-    if hasattr(crs, "g1_limbs"):
-        x, y, inf = crs.g1_limbs(domain_size)
-    else:
-        pts = crs.g1_bases[:domain_size]
-        x, y = (FQ.to_limbs_np([0 if p is None else p[c] for p in pts]) for c in (0, 1))
-        inf = np.array([p is None for p in pts], dtype=bool)
-    if x.shape[0] < domain_size:
-        raise ValueError(f"the key has {x.shape[0]} points, the domain {domain_size}")
-    return CrsLimbs(*group_intt(x, y, inf, device), list(crs.g2_monomial_bases))
+    SetupForProver takes as key_lagrange_form and save() writes.  One
+    stage, "lagrange key" (profiling: under PLONKIT_TPU_TRACE its trace is
+    lagrange_key.json), which does not synchronize: the key ends in its
+    read-backs, so the stage's time is whole without, and a synchronize
+    after them costs tens of microseconds a key."""
+    with stage("lagrange key", sync=False):
+        if domain_size < 1 or domain_size & (domain_size - 1):
+            raise ValueError(f"domain size {domain_size} is not a power of two")
+        TorchBackend(device)                          # raises for "cuda" without a card
+        if hasattr(crs, "g1_limbs"):
+            x, y, inf = crs.g1_limbs(domain_size)
+        else:
+            pts = crs.g1_bases[:domain_size]
+            x, y = (FQ.to_limbs_np([0 if p is None else p[c] for p in pts]) for c in (0, 1))
+            inf = np.array([p is None for p in pts], dtype=bool)
+        if x.shape[0] < domain_size:
+            raise ValueError(f"the key has {x.shape[0]} points, the domain {domain_size}")
+        return CrsLimbs(*group_intt(x, y, inf, device), list(crs.g2_monomial_bases))
 
 
 class SetupForProver:

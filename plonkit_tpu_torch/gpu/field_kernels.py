@@ -13,10 +13,12 @@ raises.  `launches` counts kernel launches, one per call that launched.
 
 import torch
 
+from ..profiling import register_launches
 from . import build, mont
 from .mont import NLIMBS, FieldSpec
 
 launches = {"mul": 0, "add": 0, "sub": 0, "mul_add": 0, "scan": 0, "inverse": 0}
+register_launches(launches)
 
 
 def check_operands(*ts: torch.Tensor) -> None:

@@ -28,7 +28,7 @@ import torch
 
 from ..fields import FR_MODULUS
 from . import field_kernels as fk, msm_kernels as mk, ntt as gntt
-from .mont import FQ, FR, NLIMBS, to_numpy, to_tensor
+from .mont import FQ, FR, NLIMBS, download, to_numpy, to_tensor
 
 WINDOW = 8
 NUM_WINDOWS = 256 // WINDOW
@@ -106,8 +106,7 @@ def affine_batch_to_limbs(aff):
     serialization.load_crs_g1_limbs."""
     x, y, inf = aff
     one = FQ.const_raw(1, x.shape[0], x.device)
-    return (to_numpy(fk.mul(FQ, x, one)), to_numpy(fk.mul(FQ, y, one)),
-            inf.cpu().numpy())
+    return to_numpy(fk.mul(FQ, x, one)), to_numpy(fk.mul(FQ, y, one)), download(inf)
 
 
 def gen_crs_g1_device(power: int, tau: int = 42, device="cuda"):

@@ -28,12 +28,14 @@ import torch
 
 from ..curve import GLV_BETA, glv_split
 from ..fields import FR_MODULUS, fr_inv, get_domain_omega
+from ..profiling import register_launches, span
 from . import build, ec, field_kernels as fk, mont, ntt as gntt
 from .field_kernels import check_operands, stream_ptr
 from .fixed_base import affine_batch_to_limbs, to_affine_batch
 from .mont import FQ, FR, to_numpy, to_tensor
 
 launches = {"g1_butterfly": 0, "g1_scale": 0}
+register_launches(launches)
 
 GLV_WINDOWS = 32        # 4-bit windows of a half, |k_i| < 2^128 (csrc/group_ntt.cu)
 TABLE = 8               # the odd multiples P, 3P, ..., 15P
@@ -192,22 +194,29 @@ def group_intt(x, y, inf, device="cuda"):
     n = x.shape[0]
     if n < 1 or n & (n - 1) or y.shape[0] != n or len(inf) != n:
         raise ValueError(f"{n} points: the transform takes a power of two of them")
-    fin = ~torch.from_numpy(np.asarray(inf, dtype=bool)).to(device)[:, None]
-    r2 = FQ.const_raw(FQ.r2_mod_p, n, device)
-    zero = torch.zeros((n, 8), dtype=torch.int32, device=device)
-    pts = (torch.where(fin, fk.mul(FQ, to_tensor(x, device), r2), zero),
-           torch.where(fin, fk.mul(FQ, to_tensor(y, device), r2), zero),
-           torch.where(fin, FQ.const(1, n, device), zero))
-    rev = torch.from_numpy(gntt._bitrev_np(n)).to(device)
-    pts = tuple(c.index_select(0, rev) for c in pts)
+    with span("lagrange key: points in"):
+        fin = ~mont.upload(np.asarray(inf, dtype=bool), device)[:, None]
+        r2 = FQ.const_raw(FQ.r2_mod_p, n, device)
+        zero = torch.zeros((n, 8), dtype=torch.int32, device=device)
+        pts = (torch.where(fin, fk.mul(FQ, to_tensor(x, device), r2), zero),
+               torch.where(fin, fk.mul(FQ, to_tensor(y, device), r2), zero),
+               torch.where(fin, FQ.const(1, n, device), zero))
+        rev = mont.upload(gntt._bitrev_np(n), device)
+        pts = tuple(c.index_select(0, rev) for c in pts)
     half = n // 2
     if half:
-        pows = gntt.powers(fr_inv(get_domain_omega(n)), half, device)
-        tw = fk.mul(FR, pows, FR.const_raw(1, half, device))
-        for t in reversed(range(n.bit_length() - 1)):
-            lo, hi = g1_butterfly(tuple(c[0::2].contiguous() for c in pts),
-                                  tuple(c[1::2].contiguous() for c in pts),
-                                  gntt._stage_twiddles(tw, t, half))
-            pts = tuple(torch.cat([a, b]) for a, b in zip(lo, hi))
-    pts = g1_scale(pts, fr_inv(n))
-    return affine_batch_to_limbs(to_affine_batch(pts))
+        with span("group ntt: twiddles"):
+            pows = gntt.powers(fr_inv(get_domain_omega(n)), half, device)
+            tw = fk.mul(FR, pows, FR.const_raw(1, half, device))
+        with span("group ntt: butterflies"):
+            for t in reversed(range(n.bit_length() - 1)):
+                lo, hi = g1_butterfly(tuple(c[0::2].contiguous() for c in pts),
+                                      tuple(c[1::2].contiguous() for c in pts),
+                                      gntt._stage_twiddles(tw, t, half))
+                pts = tuple(torch.cat([a, b]) for a, b in zip(lo, hi))
+    with span("group ntt: scale"):
+        pts = g1_scale(pts, fr_inv(n))
+    with span("group ntt: affine"):
+        aff = to_affine_batch(pts)
+    with span("lagrange key: limbs out"):
+        return affine_batch_to_limbs(aff)

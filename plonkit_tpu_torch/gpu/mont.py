@@ -20,6 +20,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import profiling
 from ..fields import FQ_MODULUS, FR_MODULUS
 
 NLIMBS = 8          # 32-bit limbs per element
@@ -82,15 +83,37 @@ FR = FieldSpec(FR_MODULUS, 0)
 FQ = FieldSpec(FQ_MODULUS, 1)
 
 
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on `device`.  A copy to the card waits for
+    its stream to drain (a pageable copy): profiling counts it as a device
+    wait and its bytes as h2d_bytes."""
+    t = torch.from_numpy(arr)
+    if device == "cpu" or getattr(device, "type", None) == "cpu":
+        return t
+    with profiling.device_wait():
+        out = t.to(device)
+    profiling.count("h2d_bytes", arr.nbytes)
+    return out
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a contiguous numpy array on the host; a copy from the
+    card is a device wait (profiling)."""
+    t = t.detach()
+    if t.device.type != "cpu":
+        with profiling.device_wait():
+            t = t.cpu()
+    return t.contiguous().numpy()
+
+
 def to_tensor(limbs: np.ndarray, device) -> torch.Tensor:
     """[N, 8] uint32 numpy limbs -> [N, 8] int32 tensor on `device`."""
-    arr = np.ascontiguousarray(limbs, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr).to(device)
+    return upload(np.ascontiguousarray(limbs, dtype=np.uint32).view(np.int32), device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """[N, 8] int32 tensor -> [N, 8] uint32 numpy limbs on the host."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+    return download(t).view(np.uint32)
 
 
 # ---------------------------------------------------------------------------

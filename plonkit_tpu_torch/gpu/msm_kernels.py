@@ -13,11 +13,13 @@ call that launched.
 
 import torch
 
+from ..profiling import register_launches
 from . import build, ec
 from .field_kernels import check_operands, stream_ptr
 from .mont import NLIMBS
 
 launches = {"bucket_sweep": 0, "padd": 0, "segment_fold": 0, "window_sums": 0, "combine": 0}
+register_launches(launches)
 
 
 def _check_vector(t: torch.Tensor, dtype, name: str) -> None:

@@ -37,10 +37,12 @@ import numpy as np
 import torch
 
 from ..fields import FR_GENERATOR, FR_MODULUS as R, fr_inv, get_domain_omega
+from ..profiling import register_launches
 from . import build, field_kernels as fk, mont
 from .mont import FR, NLIMBS, FieldSpec
 
 launches = {"butterfly_dif": 0, "butterfly": 0}
+register_launches(launches)
 
 
 def butterfly_dif(lo: torch.Tensor, hi: torch.Tensor, w: torch.Tensor):
@@ -139,7 +141,7 @@ def _tables(n: int, inverse: bool, device: str):
     if inverse:
         omega = fr_inv(omega)
     omega_pows = powers(omega, max(n // 2, 1), device)
-    rev = torch.from_numpy(_bitrev_np(n)).to(device)
+    rev = mont.upload(_bitrev_np(n), device)
     n_inv = FR.const(fr_inv(n), 1, device)
     return omega_pows, rev, n_inv
 

@@ -39,6 +39,7 @@ from functools import lru_cache
 import torch
 
 from ..fields import FR_GENERATOR, FR_MODULUS as P, fr_inv, get_domain_omega
+from ..profiling import register_launches
 from . import build, field_kernels as fk, mont, ntt as gntt
 from .mont import FR, NLIMBS
 
@@ -54,6 +55,7 @@ _OFF_BYTES = [((OFFSET_C * P) >> (8 * t)) & 0xFF for t in range(FOLD_BYTES)]
 assert (OFFSET_C * P) >> (8 * FOLD_BYTES) == 0
 
 launches = {"balanced_digits": 0, "dft_product": 0, "fold_redc": 0}
+register_launches(launches)
 
 
 def plan_radices(n: int) -> tuple:

@@ -7,6 +7,8 @@ traces that PLONKIT_TPU_TRACE=<dir> makes `profiling.stage` write.
 Each copy or kernel on the card is charged to the innermost stage whose
 span (a `record_function` of the stage's name) holds the host call that
 launched it: the trace's `cuda_runtime` event of the same correlation id.
+The "device wait" spans (profiling.DEVICE_WAIT) around each blocking copy
+are passed over, so a copy is charged to the stage or span that made it.
 Prints one JSON object: for every stage, the host-to-device copies by
 source memory (pageable or pinned) with their count, bytes, device ms and
 the largest sizes, and the kernels' count and device ms.
@@ -18,6 +20,8 @@ import json
 import os
 import re
 import sys
+
+from .profiling import DEVICE_WAIT
 
 TOP_SIZES = 5
 
@@ -39,7 +43,8 @@ def summarize_trace(path: str) -> dict:
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") == "user_annotation"), key=lambda s: (s[0], -s[1]))
+                    if e.get("cat") == "user_annotation" and e["name"] != DEVICE_WAIT),
+                   key=lambda s: (s[0], -s[1]))
     starts = [s[0] for s in spans]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}

@@ -552,3 +552,74 @@ def test_group_ntt_kernels_match_plain(card):
     assert group_ntt.launches["g1_butterfly"] == before["g1_butterfly"] + 1 + 6
     assert all(np.array_equal(a, b)
                for a, b in zip(on_card, group_ntt.group_intt(x, y, inf, "cpu")))
+
+
+@pytest.fixture(scope="module")
+def monomial_key_2p12():
+    """The 2^12 tau = 42 monomial key made on the card, after one Lagrange
+    key from it (kernels built, the process's CUDA state warm)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from plonkit_tpu_torch.api import crs_lagrange_form
+    from plonkit_tpu_torch.curve import G2_GEN, g2_mul
+    from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
+    from plonkit_tpu_torch.serialization import CrsLimbs
+    key = CrsLimbs(*gen_crs_g1_device(12, 42, "cuda"), [G2_GEN, g2_mul(G2_GEN, 42)])
+    crs_lagrange_form(key, 1 << 12)
+    torch.cuda.synchronize()
+    return key
+
+
+def test_lagrange_key_waits_are_torch_syncs(monomial_key_2p12, monkeypatch):
+    """profiling's device_waits over one 2^12 key equals the synchronizations
+    torch reports under set_sync_debug_mode("warn"), every warning recorded,
+    with each torch.cuda.synchronize call that gave no warning of its own
+    (torch's debug mode flags implicit syncs; an explicit one may pass
+    silently)."""
+    import warnings
+    from plonkit_tpu_torch import profiling
+    from plonkit_tpu_torch.api import crs_lagrange_form
+    synchronize, silent = torch.cuda.synchronize, []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*args, **kwargs):
+            seen = len(caught)
+            out = synchronize(*args, **kwargs)
+            if len(caught) == seen:
+                silent.append(1)
+            return out
+        monkeypatch.setattr(torch.cuda, "synchronize", counted)
+        before = profiling.counts()["device_waits"]
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            crs_lagrange_form(monomial_key_2p12, 1 << 12)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        waits = profiling.counts()["device_waits"] - before
+    reported = [f"{w.filename}:{w.lineno} {w.message}" for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"device_waits {waits}; torch: {len(reported)} warnings, {len(silent)} "
+          f"synchronize calls without one")
+    assert waits == len(reported) + len(silent), "\n".join(reported)
+
+
+def test_lagrange_key_h2d_bytes_are_the_traced_copies(monomial_key_2p12, tmp_path):
+    """profiling's h2d_bytes over one 2^12 key equals the bytes of the
+    Memcpy HtoD events in a torch.profiler trace of it."""
+    import json
+    from plonkit_tpu_torch import profiling
+    from plonkit_tpu_torch.api import crs_lagrange_form
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        before = profiling.counts()["h2d_bytes"]
+        crs_lagrange_form(monomial_key_2p12, 1 << 12)
+        counted = profiling.counts()["h2d_bytes"] - before
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "key.json"))
+    with open(tmp_path / "key.json") as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e["args"]["bytes"] for e in events if e.get("ph") == "X"
+              and e.get("cat") == "gpu_memcpy" and e["name"].startswith("Memcpy HtoD")]
+    print(f"h2d_bytes {counted}; traced: {len(copies)} HtoD copies, {sum(copies)} bytes")
+    assert copies and counted == sum(copies)
