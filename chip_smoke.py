@@ -69,8 +69,12 @@ Phases, each printing a JSON line with its wall seconds:
    and lo = -[w]hi planted in lanes the check reads), K15 by 1/2^20 on the
    2^20 points; the output of the launch kept is held against the plain
    version on every 128th (K14) or 256th (K15) lane, 2^12 lanes each, the
-   planted ones among them.  Times are CUDA events after a sleep kernel
-   that holds the card while the host queues the calls;
+   planted ones among them; and both again at the shapes of the
+   benchmark's Lagrange key, K14 on stage 0 of a 2^12-point inverse
+   transform (2^11 lanes) and K15 on its 2^12 points, every lane held
+   against the plain version, each row with the lane group
+   (group_ntt.lane_group) its launch took.  Times are CUDA events after a
+   sleep kernel that holds the card while the host queues the calls;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
@@ -404,7 +408,9 @@ def phase_build() -> None:
 
 def ptxas_by_kernel(report: str) -> dict:
     """ptxas -v output -> {kernel: registers, shared memory, stack and
-    spill bytes (those of the device functions it calls included)}."""
+    spill bytes (those of the device functions it calls included)}; a
+    kernel of one int template argument as name<arg> (K14 / K15's lane
+    groups)."""
     out, cur = {}, None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -413,6 +419,9 @@ def ptxas_by_kernel(report: str) -> dict:
             cur = next((name for size, name in re.findall(r"(?=(\d+)([A-Za-z_]\w*?_kernel)[A-Z])",
                                                           m.group(1))
                         if int(size) == len(name)), m.group(1))
+            arg = re.search(re.escape(cur) + r"ILi(\d+)EE", m.group(1))
+            if arg:
+                cur = f"{cur}<{arg.group(1)}>"
             out[cur] = {"spill_bytes": 0}
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -1089,6 +1098,7 @@ def _batch_inverse_record() -> dict:
 
 
 GROUP_NTT_CHECK_LANES = 1 << 12   # lanes of K14 / K15 held against their plain versions
+KEY_LOG2 = 12                     # the benchmark's Lagrange key (poseidon_2p12_lagrange)
 # 32-bit multiplies of one Montgomery squaring: 36 distinct wide products
 # of the 8 x 8 limbs instead of 64, the reduction as in MONT_MUL_OPS
 MONT_SQR_OPS = 2 * (36 + 64) + 8
@@ -1291,7 +1301,60 @@ def _group_ntt_rows(ctx) -> list:
                        f" of the launch kept")
     if not k15["infinite_lanes_kept"]:
         k15["mismatches"] += 1
+    k14["lane_group"] = group_ntt.lane_group(half, _sm_count())
+    k15["lane_group"] = group_ntt.lane_group(n, _sm_count())
+    k14["key_2p12"], k15["key_2p12"] = _group_ntt_key_shapes(pts)
+    for row in (k14, k15):
+        row["mismatches"] += row["key_2p12"]["mismatches"]
     return [k14, k15]
+
+
+def _sm_count() -> int:
+    import torch
+    return torch.cuda.get_device_properties(DEVICE).multi_processor_count
+
+
+def _group_ntt_key_shapes(pts) -> tuple:
+    """K14 and K15 at the shapes of the benchmark's Lagrange key: K14 on
+    stage 0 of a 2^KEY_LOG2-point inverse transform (2^11 lanes, the
+    twiddles w^-j) over the first 2^KEY_LOG2 of phase 3's points (lo's
+    planted infinities among them), K15 by 1/2^KEY_LOG2 on those points;
+    each launch held against its plain version on every lane, beside its
+    time (20 launches), its bound as the 2^19 row's and the lane group
+    group_ntt.lane_group gave it."""
+    import torch
+    from plonkit_tpu_torch.curve import glv_split
+    from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
+    from plonkit_tpu_torch.gpu import field_kernels as fk, group_ntt, ntt
+    from plonkit_tpu_torch.gpu.mont import FR, to_numpy
+    n = 1 << KEY_LOG2
+    half = n // 2
+    tw = fk.mul(FR, ntt.powers(fr_inv(get_domain_omega(n)), half, DEVICE),
+                FR.const_raw(1, half, DEVICE))
+    lo, hi = tuple(a[:half] for a in pts), tuple(a[half:n] for a in pts)
+    halves = [None if k == 1 else glv_split(k) for k in FR.from_limbs_np(to_numpy(tw))]
+    k14 = _key_shape(lambda: sum(group_ntt.g1_butterfly(lo, hi, tw), ()),
+                     lambda: sum(group_ntt.g1_butterfly_plain(lo, hi, tw), ()), half,
+                     half * (4 * POINT_BYTES + 32),
+                     int(_least_glv_ops(halves, True).sum()) + 2 * ADD_OPS * half)
+    p = tuple(a[:n] for a in pts)
+    inv_n = fr_inv(n)
+    k15 = _key_shape(lambda: group_ntt.g1_scale(p, inv_n),
+                     lambda: group_ntt.g1_scale_plain(p, inv_n), n, n * 2 * POINT_BYTES + 32,
+                     int(_least_glv_ops([glv_split(inv_n)], False)[0]) * n)
+    return k14, k15
+
+
+def _key_shape(kernel, plain, lanes: int, bytes_moved: int, least: int) -> dict:
+    from plonkit_tpu_torch.gpu import group_ntt
+    got = kernel()
+    want, plain_ms = _timed_once(plain)
+    ms = time_ms(kernel, 20)
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, least / INT32_MUL_PER_S) * 1e3
+    return {"lanes": lanes, "lane_group": group_ntt.lane_group(lanes, _sm_count()),
+            "ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+            "mismatches": _mismatches(got, want), "max_abs_err": _max_abs_err(got, want),
+            "plain_ms": plain_ms, "bound_int32_muls": least, "bound_bytes": bytes_moved}
 
 
 def phase_kernels(ctx) -> list:

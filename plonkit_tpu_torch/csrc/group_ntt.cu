@@ -16,7 +16,7 @@
 // the short basis of curve.py), |k1|, |k2| < 2^126.2 (curve.GLV_BOUND),
 // recoded for |k_i| < 2^128: E_i = floor(k_i / 2) + 2^127, whose 32
 // nibbles e are the odd signed digits 2e - 15 of k_i + (k_i even).  The
-// thread builds P, 3P, ..., 15P (one doubling, 7 complete adds; 768 bytes
+// lane builds P, 3P, ..., 15P (one doubling, 7 complete adds; 768 bytes
 // of shared memory), starts from the two top digits' entries, then takes a
 // window at a time four doublings and one add for each half, and at the
 // end subtracts P (phi(P)) from a half that was even.  The ladder is
@@ -28,6 +28,20 @@
 // run the same point operations over all lanes at once, so every output
 // limb is theirs.
 //
+// A lane runs on a group of g = 1, 2 or 4 threads of one warp, which
+// gpu/group_ntt.lane_group picks from the launch's lanes and the card's
+// SMs.  One thread runs ec.cuh's formulas.  In a group of more, every
+// thread holds the lane's points and does its field adds, and each level
+// of a formula's independent products is dealt out over the group, a
+// product a thread (its operands picked by a tree of selects on its rank),
+// the products brought back to the whole group by warp shuffles:
+// add-2007-bl's 16 products (17 with phi's beta x) in 5 levels,
+// dbl-2009-l's 7 in 3.  A lane's ladder is then ~740 rounds of one product
+// where one thread runs ~2,075 products in turn.  The group's threads hold
+// the same values and take the same branches, the shuffles name the group
+// alone, and a lane's table is written once, each thread a share of its
+// words, with one __syncwarp before it is read.
+//
 // What bounds them on the H100: integer multiplies.  A lane is 125
 // doublings (2 products, 5 squarings), 63 adds for the windows, 7 for the
 // table and 0-2 for the even halves (12 products, 4 squarings each), 32
@@ -37,7 +51,8 @@
 // memory (96 KB a block of 128 threads: two blocks an SM, as the 180
 // registers allow anyway), laid out so that a warp's reads never conflict
 // whatever its digits.  ptxas: K14 180 registers and a 328-byte stack
-// frame, K15 166 and 232, no spills.  This form was the fastest of those
+// frame, K15 166 and 232, no spills (g = 1; at g = 4, 24 KB of table a
+// block, 137 and 288, 128 and 192).  This form was the fastest of those
 // timed on 2^19 butterflies (H100 80GB HBM3 at 700 W, PERF.md): 21.7 ms;
 // a table of phi's x 22.1; the formulas out of line 22.6; the table in
 // local memory 23.2, and 26.4 under a cap of 168 registers (three blocks an
@@ -48,9 +63,22 @@
 // twiddles cannot share a NAF's irregular adds, which the regular ladder
 // pays for; K15's one scalar could take it).
 //
+// At few lanes the bound is one lane's chain instead.  Below 32 lanes a
+// warp scheduler (528 on the H100's 132 SMs: 16,896 lanes) a thread a lane
+// leaves schedulers without a warp, and a stage lasts one lane's ladder:
+// the 2^12 Lagrange key's 2^11-lane stages ran 16 blocks on 16 SMs, 1.05
+// ms a stage.  On groups of 4 they run 256 warps, 0.46 ms a stage (K15 on
+// the key's 2^12 points 1.04 -> 0.45 ms).  Where a thread a lane already
+// gives every scheduler a warp the group's shuffles and selects only add
+// instructions (2^16 lanes: 2.70 ms at g = 1, 4.18 at g = 2).  Below,
+// lane_group takes the smallest group that gives every scheduler a warp,
+// the fastest at every lane count timed (the crossover, PERF.md).
+//
 // C interface for ctypes, built like field.cu (gpu/build.py): every entry
 // launches on the given stream, allocates nothing, does not synchronise,
 // and returns cudaGetLastError().
+
+#include <type_traits>
 
 #include "ec.cuh"
 
@@ -170,38 +198,201 @@ __device__ __forceinline__ bool fe_is_one_raw(const Fe& k) {
     return acc == 0;
 }
 
-__device__ __forceinline__ Fe neg_if(const Fe& y, bool neg, const FieldParams& f) {
-    const Fe n = fe_sub(fe_zero(), y, f);
+__device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
     Fe r;
 #pragma unroll
-    for (int j = 0; j < 8; j++) r.v[j] = neg ? n.v[j] : y.v[j];
+    for (int j = 0; j < 8; j++) r.v[j] = c ? a.v[j] : b.v[j];
     return r;
 }
 
-// The table in shared memory: word j of entry i of thread t at
-// [(i * 24 + j) * kThreads + t], so the 32 lanes of a warp read 32 banks
-// whichever entries they take.  Each thread reads only its own words: no
-// barrier.
-constexpr int kSmemBytes = kTable * 24 * kThreads * 4;
+__device__ __forceinline__ Fe neg_if(const Fe& y, bool neg, const FieldParams& f) {
+    return fe_select(neg, fe_sub(fe_zero(), y, f), y);
+}
 
-__device__ __forceinline__ void smem_put(uint32_t* s, int i, const Jac& q) {
-    uint32_t* w = s + i * 24 * kThreads + threadIdx.x;
+// A lane's ladder on a group of G threads of one warp (G = 1, 2 or 4, the
+// wrapper's choice): every thread of the group holds the lane's points and
+// does its adds and subtractions, and each level of a point formula's
+// independent Montgomery products is dealt out over the group, a product a
+// thread, its results brought back to every thread of the group by warp
+// shuffles.  The group's threads take the same branches (they hold the
+// same values), so a branch splits a warp only between groups, and the
+// shuffles name the group alone.
+template <int G>
+struct Group {
+    uint32_t mask;    // the group's threads in the warp
+    uint32_t rank;    // this thread's place in its group
+};
+
+template <int G>
+__device__ __forceinline__ Group<G> this_group() {
+    const uint32_t lane = threadIdx.x & 31u;
+    Group<G> g;
+    g.rank = lane & (G - 1);
+    g.mask = ((1u << G) - 1) << (lane - g.rank);
+    return g;
+}
+
+template <int G>
+__device__ __forceinline__ Fe shfl_fe(const Fe& a, uint32_t src, uint32_t mask) {
+    Fe r;
 #pragma unroll
-    for (int j = 0; j < 8; j++) {
-        w[j * kThreads] = q.x.v[j];
-        w[(8 + j) * kThreads] = q.y.v[j];
-        w[(16 + j) * kThreads] = q.z.v[j];
+    for (int j = 0; j < 8; j++) r.v[j] = __shfl_sync(mask, a.v[j], src, G);
+    return r;
+}
+
+// v[i + rank], this thread's operand of the round from i (v[i] past the
+// level's end), by a tree of selects on the rank's bits (a chain of
+// compares cost the 4-thread stage ~12 %)
+template <int G, int K>
+__device__ __forceinline__ Fe pick(const Fe (&v)[K], int i, uint32_t rank) {
+    auto at = [&](int j) -> const Fe& { return v[i + j < K ? i + j : i]; };
+    if constexpr (G == 1) {
+        return at(0);
+    } else if constexpr (G == 2) {
+        return fe_select(rank & 1, at(1), at(0));
+    } else {
+        return fe_select(rank & 2, fe_select(rank & 1, at(3), at(2)),
+                         fe_select(rank & 1, at(1), at(0)));
     }
 }
 
+// o[i] = a[i] b[i] for the K products of one level, in rounds of G: the
+// thread of rank j takes product i + j of the round from i (rank 0's
+// where there is none), and every thread gets the round's products by
+// shuffles.  A round of one product is that product on every thread, with
+// nothing to exchange.
+template <int G, int K>
+__device__ __forceinline__ void products(const Fe (&a)[K], const Fe (&b)[K], Fe (&o)[K],
+                                         const Group<G>& g, const FieldParams& f) {
+#pragma unroll
+    for (int i = 0; i < K; i += G) {
+        const Fe m = fe_mont_mul(pick<G>(a, i, g.rank), pick<G>(b, i, g.rank), f);
+        if (G == 1 || i + 1 == K) {
+            o[i] = m;
+        } else {
+#pragma unroll
+            for (int j = 0; j < G; j++)
+                if (i + j < K) o[i + j < K ? i + j : i] = shfl_fe<G>(m, j, g.mask);
+        }
+    }
+}
+
+// dbl-2009-l, jac_double_inline's field operations, its products in three
+// levels: {A = X^2, B = Y^2, Y Z}, {C = B^2, (X + B)^2, F = E^2},
+// {E (D - X3)}.  One thread takes jac_double_inline itself, whose order of
+// products keeps fewer values live.
+template <int G>
+__device__ __forceinline__ Jac group_double(const Jac& p, const Group<G>& g,
+                                            const FieldParams& f) {
+    if constexpr (G == 1) {
+        return jac_double_inline(p, f);
+    } else {
+        Fe l1[3];
+        products<G>({p.x, p.y, p.y}, {p.x, p.y, p.z}, l1, g, f);
+        const Fe A = l1[0], B = l1[1];
+        const Fe xb = fe_add(p.x, B, f);
+        const Fe E = fe_add(fe_add(A, A, f), A, f);
+        Fe l2[3];
+        products<G>({B, xb, E}, {B, xb, E}, l2, g, f);
+        const Fe C = l2[0];
+        const Fe t = fe_sub(l2[1], fe_add(A, C, f), f);
+        const Fe D = fe_add(t, t, f);
+        Jac r;
+        r.x = fe_sub(l2[2], fe_add(D, D, f), f);
+        Fe c2 = fe_add(C, C, f);
+        c2 = fe_add(c2, c2, f);
+        const Fe eight_c = fe_add(c2, c2, f);
+        Fe l3[1];
+        products<G>({E}, {fe_sub(D, r.x, f)}, l3, g, f);
+        r.y = fe_sub(l3[0], eight_c, f);
+        r.z = fe_add(l1[2], l1[2], f);
+        return r;
+    }
+}
+
+// the doubling an add falls back to (P + P), out of line: it is rare
+template <int G>
+__device__ __noinline__ Jac group_double_call(const Jac& p, const Group<G> g,
+                                              const FieldParams f) {
+    return group_double(p, g, f);
+}
+
+// add-2007-bl with jac_add_inline's fallbacks, its products in five levels:
+// {Z1Z1, Z2Z2, Z1 Z2}, {U1, U2, Z2 Z2Z2, Z1 Z1Z1}, {S1, S2, HH, Z3 = Z1 Z2
+// H}, {r^2, HHH, V}, {r (V - X3), S1 HHH}.  With PHI the add takes phi(q):
+// q's x times beta, a fourth product of the first level.  One thread takes
+// jac_add_inline itself, as the doubling does (and phi as the entry is
+// read, glv_mul).
+template <int G, bool PHI>
+__device__ __forceinline__ Jac group_add(const Jac& p, Jac q, const Group<G>& g,
+                                         const FieldParams& f) {
+    if constexpr (G == 1) {
+        static_assert(!PHI, "one thread takes phi as the entry is read");
+        return jac_add_inline(p, q, f);
+    } else {
+        if (fe_is_zero(q.z)) return p;
+        Fe l1[PHI ? 4 : 3];
+        if constexpr (PHI) {
+            products<G>({p.z, q.z, p.z, q.x}, {p.z, q.z, q.z, glv_beta()}, l1, g, f);
+            q.x = l1[3];
+        } else {
+            products<G>({p.z, q.z, p.z}, {p.z, q.z, q.z}, l1, g, f);
+        }
+        if (fe_is_zero(p.z)) return q;
+        Fe l2[4];
+        products<G>({p.x, q.x, q.z, p.z}, {l1[1], l1[0], l1[1], l1[0]}, l2, g, f);
+        const Fe U1 = l2[0];
+        const Fe H = fe_sub(l2[1], U1, f);
+        Fe l3[4];
+        products<G>({p.y, q.y, H, l1[2]}, {l2[2], l2[3], H, H}, l3, g, f);
+        const Fe S1 = l3[0];
+        const Fe r = fe_sub(l3[1], S1, f);
+        if (fe_is_zero(H)) return fe_is_zero(r) ? group_double_call<G>(p, g, f) : jac_infinity();
+        Fe l4[3];
+        products<G>({r, H, U1}, {r, l3[2], l3[2]}, l4, g, f);
+        const Fe HHH = l4[1], V = l4[2];
+        Jac o;
+        o.x = fe_sub(fe_sub(l4[0], HHH, f), fe_add(V, V, f), f);
+        Fe l5[2];
+        products<G>({r, S1}, {fe_sub(V, o.x, f), HHH}, l5, g, f);
+        o.y = fe_sub(l5[0], l5[1], f);
+        o.z = l3[3];
+        return o;
+    }
+}
+
+// The table in shared memory, a lane's entries once for its group: word j
+// of entry i of the block's lane l at [(i * 24 + j) * L + l], L = kThreads /
+// G lanes a block, so the lanes of a warp read distinct banks whichever
+// entries they take, and a group's threads one word together.  The thread
+// of rank r writes the words j = r mod G of each coordinate; after the
+// table, one __syncwarp of the group, and no barrier besides.
+constexpr int kSmemBytes = kTable * 24 * kThreads * 4;    // G = 1; G takes 1 / G of it
+
+template <int G>
+__device__ __forceinline__ void smem_put(uint32_t* s, int i, const Jac& q, const Group<G>& g) {
+    constexpr int L = kThreads / G;
+    uint32_t* w = s + i * 24 * L + threadIdx.x / G;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+        if (G == 1 || j % G == (int)g.rank) {
+            w[j * L] = q.x.v[j];
+            w[(8 + j) * L] = q.y.v[j];
+            w[(16 + j) * L] = q.z.v[j];
+        }
+    }
+}
+
+template <int G>
 __device__ __forceinline__ Jac smem_get(const uint32_t* s, uint32_t i) {
-    const uint32_t* w = s + i * 24 * kThreads + threadIdx.x;
+    constexpr int L = kThreads / G;
+    const uint32_t* w = s + i * 24 * L + threadIdx.x / G;
     Jac q;
 #pragma unroll
     for (int j = 0; j < 8; j++) {
-        q.x.v[j] = w[j * kThreads];
-        q.y.v[j] = w[(8 + j) * kThreads];
-        q.z.v[j] = w[(16 + j) * kThreads];
+        q.x.v[j] = w[j * L];
+        q.y.v[j] = w[(8 + j) * L];
+        q.z.v[j] = w[(16 + j) * L];
     }
     return q;
 }
@@ -215,43 +406,53 @@ __device__ __forceinline__ void next_window(uint32_t (&e)[4]) {
     e[0] <<= 4;
 }
 
-// [k]p for a scalar k in the ladder's form (not one), the point formulas
-// inlined, phi's x a product at each of the second half's entries
-__device__ __forceinline__ Jac glv_mul(const Jac& p, GlvScalar s, const FieldParams& f) {
+// [k]p for a scalar k in the ladder's form (not one) on the lane's group,
+// the point formulas inlined.  Phi's x of a second-half entry is a product
+// of the add's first level on a group (PHI), and on one thread a product
+// of its own as the entry is read, as ec.cuh's order had it (1 % faster
+// at 2^19 lanes than in the add)
+template <int G>
+__device__ __forceinline__ Jac glv_mul(const Jac& p, GlvScalar s, const Group<G>& g,
+                                       const FieldParams& f) {
     extern __shared__ uint32_t table[];
+    constexpr bool kPhiInAdd = G > 1;
     // the entry of nibble e, the digit 2e - 15: T[e - 8] for e >= 8, else
-    // -T[7 - e]; its x times beta in the second half
+    // -T[7 - e]
     auto entry = [&](uint32_t e, bool phi) -> Jac {
-        Jac q = smem_get(table, e >= 8 ? e - 8 : 7 - e);
-        if (phi) q.x = fe_mont_mul(q.x, glv_beta(), f);
+        Jac q = smem_get<G>(table, e >= 8 ? e - 8 : 7 - e);
+        if (phi && !kPhiInAdd) q.x = fe_mont_mul(q.x, glv_beta(), f);
         q.y = neg_if(q.y, e < 8, f);
         return q;
     };
-    const Jac d = jac_double_inline(p, f);
+    const Jac d = group_double(p, g, f);
     Jac t = p;
-    smem_put(table, 0, t);
+    smem_put(table, 0, t, g);
 #pragma unroll 1
     for (int i = 1; i < kTable; i++) {
-        t = jac_add_inline(t, d, f);
-        smem_put(table, i, t);
+        t = group_add<G, false>(t, d, g, f);
+        smem_put(table, i, t, g);
     }
+    if (G > 1) __syncwarp(g.mask);
     Jac acc = entry(s.e[0][3] >> 28, false);
-    acc = jac_add_inline(acc, entry(s.e[1][3] >> 28, true), f);
+    acc = group_add<G, kPhiInAdd>(acc, entry(s.e[1][3] >> 28, true), g, f);
 #pragma unroll 1
     for (int w = kWindows - 2; w >= 0; w--) {
         next_window(s.e[0]);
         next_window(s.e[1]);
 #pragma unroll 1
-        for (int k = 0; k < 4; k++) acc = jac_double_inline(acc, f);
-        acc = jac_add_inline(acc, entry(s.e[0][3] >> 28, false), f);
-        acc = jac_add_inline(acc, entry(s.e[1][3] >> 28, true), f);
+        for (int k = 0; k < 4; k++) acc = group_double(acc, g, f);
+        acc = group_add<G, false>(acc, entry(s.e[0][3] >> 28, false), g, f);
+        acc = group_add<G, kPhiInAdd>(acc, entry(s.e[1][3] >> 28, true), g, f);
     }
     // the even halves ran k_i + 1: take off P and phi(P)
-    if (s.even[0]) acc = jac_add_inline(acc, entry(7, false), f);
-    if (s.even[1]) acc = jac_add_inline(acc, entry(7, true), f);
+    if (s.even[0]) acc = group_add<G, false>(acc, entry(7, false), g, f);
+    if (s.even[1]) acc = group_add<G, kPhiInAdd>(acc, entry(7, true), g, f);
     return acc;
 }
 
+// lane i on threads i G ... i G + G - 1 of the launch; the group's rank 0
+// stores
+template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
 g1_butterfly_kernel(const uint32_t* __restrict__ lx, const uint32_t* __restrict__ ly,
                     const uint32_t* __restrict__ lz, const uint32_t* __restrict__ hx,
@@ -260,58 +461,82 @@ g1_butterfly_kernel(const uint32_t* __restrict__ lx, const uint32_t* __restrict_
                     uint32_t* __restrict__ ay, uint32_t* __restrict__ az,
                     uint32_t* __restrict__ bx, uint32_t* __restrict__ by,
                     uint32_t* __restrict__ bz, int64_t n, FieldParams f) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
     if (i >= n) return;
+    const Group<G> g = this_group<G>();
     const Fe k = load_fe(w, i);
     Jac t = load_jac(hx, hy, hz, i);
-    if (!fe_is_one_raw(k)) t = glv_mul(t, glv_split(k), f);
+    if (!fe_is_one_raw(k)) t = glv_mul(t, glv_split(k), g, f);
     const Jac lo = load_jac(lx, ly, lz, i);
     Jac neg_t = t;
     neg_t.y = fe_sub(fe_zero(), t.y, f);
-    store_jac(ax, ay, az, i, jac_add_inline(lo, t, f));
-    store_jac(bx, by, bz, i, jac_add_inline(lo, neg_t, f));
+    const Jac a = group_add<G, false>(lo, t, g, f);
+    if (g.rank == 0) store_jac(ax, ay, az, i, a);
+    const Jac b = group_add<G, false>(lo, neg_t, g, f);
+    if (g.rank == 0) store_jac(bx, by, bz, i, b);
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads, 1)
 g1_scale_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                 const uint32_t* __restrict__ pz, uint32_t* __restrict__ ox,
                 uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, GlvScalar s, int64_t n,
                 FieldParams f) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
     if (i >= n) return;
+    const Group<G> g = this_group<G>();
     const Jac p = load_jac(px, py, pz, i);
-    store_jac(ox, oy, oz, i, s.one ? p : glv_mul(p, s, f));
+    const Jac o = s.one ? p : glv_mul(p, s, g, f);
+    if (g.rank == 0) store_jac(ox, oy, oz, i, o);
+}
+
+// launch(std::integral_constant<int, G>) for group = G in {1, 2, 4}
+template <typename Launch>
+int with_group(int group, Launch&& launch) {
+    switch (group) {
+        case 1: return launch(std::integral_constant<int, 1>{});
+        case 2: return launch(std::integral_constant<int, 2>{});
+        case 4: return launch(std::integral_constant<int, 4>{});
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+unsigned blocks_of(long long n, int group) {
+    return (unsigned)((n * group + kThreads - 1) / kThreads);
 }
 
 bool fq_params(FieldParams* f) { return field_params(1, f); }
 
 }  // namespace
 
-// w: canonical twiddles, each below r
+// w: canonical twiddles, each below r; group: threads a lane, 1, 2 or 4
 extern "C" int plonkit_g1_butterfly(const void* lx, const void* ly, const void* lz,
                                     const void* hx, const void* hy, const void* hz, const void* w,
                                     void* ax, void* ay, void* az, void* bx, void* by, void* bz,
-                                    long long n, void* stream) {
+                                    long long n, int group, void* stream) {
     FieldParams f;
     if (!fq_params(&f) || n < 0) return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaGetLastError();
-    const long long blocks = (n + kThreads - 1) / kThreads;
-    cudaFuncSetAttribute(g1_butterfly_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBytes);
-    g1_butterfly_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-        (const uint32_t*)lx, (const uint32_t*)ly, (const uint32_t*)lz, (const uint32_t*)hx,
-        (const uint32_t*)hy, (const uint32_t*)hz, (const uint32_t*)w, (uint32_t*)ax,
-        (uint32_t*)ay, (uint32_t*)az, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz, (int64_t)n, f);
-    return (int)cudaGetLastError();
+    return with_group(group, [&](auto gc) {
+        constexpr int G = decltype(gc)::value;
+        if (n == 0) return (int)cudaGetLastError();
+        cudaFuncSetAttribute(g1_butterfly_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes / G);
+        g1_butterfly_kernel<G><<<blocks_of(n, G), kThreads, kSmemBytes / G,
+                                 (cudaStream_t)stream>>>(
+            (const uint32_t*)lx, (const uint32_t*)ly, (const uint32_t*)lz, (const uint32_t*)hx,
+            (const uint32_t*)hy, (const uint32_t*)hz, (const uint32_t*)w, (uint32_t*)ax,
+            (uint32_t*)ay, (uint32_t*)az, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
+            (int64_t)n, f);
+        return (int)cudaGetLastError();
+    });
 }
 
 // scalar: host words [E1 (4), E2 (4), even1, even2, one] (group_ntt.scale_args)
 extern "C" int plonkit_g1_scale(const void* px, const void* py, const void* pz, void* ox,
-                                void* oy, void* oz, const void* scalar, long long n,
+                                void* oy, void* oz, const void* scalar, long long n, int group,
                                 void* stream) {
     FieldParams f;
     if (!fq_params(&f) || n < 0 || scalar == nullptr) return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaGetLastError();
     const uint32_t* a = (const uint32_t*)scalar;
     GlvScalar s;
     for (int h = 0; h < 2; h++)
@@ -319,11 +544,15 @@ extern "C" int plonkit_g1_scale(const void* px, const void* py, const void* pz, 
     s.even[0] = a[8];
     s.even[1] = a[9];
     s.one = a[10];
-    const long long blocks = (n + kThreads - 1) / kThreads;
-    cudaFuncSetAttribute(g1_scale_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBytes);
-    g1_scale_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (uint32_t*)ox,
-        (uint32_t*)oy, (uint32_t*)oz, s, (int64_t)n, f);
-    return (int)cudaGetLastError();
+    return with_group(group, [&](auto gc) {
+        constexpr int G = decltype(gc)::value;
+        if (n == 0) return (int)cudaGetLastError();
+        cudaFuncSetAttribute(g1_scale_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes / G);
+        g1_scale_kernel<G><<<blocks_of(n, G), kThreads, kSmemBytes / G,
+                             (cudaStream_t)stream>>>(
+            (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (uint32_t*)ox,
+            (uint32_t*)oy, (uint32_t*)oz, s, (int64_t)n, f);
+        return (int)cudaGetLastError();
+    });
 }

@@ -21,14 +21,20 @@ scalars are [N, 8] int32 rows of canonical little-endian Fr limbs.  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel on the
 current stream or raises.  `launches` counts kernel launches, one per call
 that launched.
+
+A launch runs each lane on a group of lane_group(lanes, SMs) threads of a
+warp, which share the ladder's products; profiling's `g1_lane_groups`
+counts the launches whose group has more than one thread.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from ..curve import GLV_BETA, glv_split
 from ..fields import FR_MODULUS, fr_inv, get_domain_omega
-from ..profiling import register_launches, span
+from ..profiling import count, register_launches, span
 from . import build, ec, field_kernels as fk, mont, ntt as gntt
 from .field_kernels import check_operands, stream_ptr
 from .fixed_base import affine_batch_to_limbs, to_affine_batch
@@ -36,9 +42,37 @@ from .mont import FQ, FR, to_numpy, to_tensor
 
 launches = {"g1_butterfly": 0, "g1_scale": 0}
 register_launches(launches)
+count("g1_lane_groups", 0)
 
 GLV_WINDOWS = 32        # 4-bit windows of a half, |k_i| < 2^128 (csrc/group_ntt.cu)
 TABLE = 8               # the odd multiples P, 3P, ..., 15P
+LANE_GROUPS = (1, 2, 4)     # threads a lane the kernels take
+SCHEDULERS_PER_SM = 4       # warp schedulers of an SM (the H100's, and every card's since Volta)
+
+
+def lane_group(lanes: int, sms: int) -> int:
+    """Threads of one warp that K14 or K15 gives each of a launch's `lanes`
+    lanes on a card of `sms` SMs: 1 when a thread a lane already gives
+    every warp scheduler of the card a warp, else the smallest group that
+    does, at most 4 (a point formula's widest level of products).  On the
+    H100 this is the fastest group at every lane count timed (PERF.md, the
+    crossover)."""
+    for g in LANE_GROUPS:
+        if lanes * g >= 32 * SCHEDULERS_PER_SM * sms:
+            return g
+    return LANE_GROUPS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _group_of(lanes: int, device: torch.device) -> int:
+    g = lane_group(lanes, _sm_count(device))
+    if g > 1:
+        count("g1_lane_groups")
+    return g
 
 
 def glv_recode(k: int) -> tuple:
@@ -135,7 +169,8 @@ def g1_butterfly(lo, hi, w):
     if n:
         lib = build.load("group_ntt")
         build.check(lib.plonkit_g1_butterfly(*(t.data_ptr() for t in (*lo, *hi, w, *out)), n,
-                                             stream_ptr(w)), "K14 g1_butterfly")
+                                             _group_of(n, w.device), stream_ptr(w)),
+                    "K14 g1_butterfly")
         launches["g1_butterfly"] += 1
     return out[:3], out[3:]
 
@@ -173,7 +208,8 @@ def g1_scale(p, s: int):
         args = scale_args(s)
         lib = build.load("group_ntt")
         build.check(lib.plonkit_g1_scale(*(t.data_ptr() for t in (*p, *out)), args.ctypes.data,
-                                         n, stream_ptr(p[0])), "K15 g1_scale")
+                                         n, _group_of(n, p[0].device), stream_ptr(p[0])),
+                    "K15 g1_scale")
         launches["g1_scale"] += 1
     return out
 

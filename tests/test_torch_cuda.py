@@ -514,14 +514,12 @@ def test_ntt_mxu_transforms_match_butterflies(card, log_n):
     assert torch.equal(ntt_mxu.coset_lde_mxu(c, 4), ntt.coset_lde(c, 4))
 
 
-def test_group_ntt_kernels_match_plain(card):
-    """K14 g1_butterfly and K15 g1_scale against their plain versions on the
-    card, Jacobian rows limb for limb (lo, hi or both at infinity, lo =
-    [w]hi, lo = -[w]hi, w = 0 and 1 planted), then the Lagrange form of 64
-    SRS points made on the card equal to the CPU's."""
+def _planted_butterflies(card, n):
+    """K14's inputs at n lanes of SRS points summed in pairs (Z != 1), with
+    lo, hi or both at infinity, lo = [w]hi, lo = -[w]hi and w = 1 and 0
+    planted in lanes 0-6."""
     from plonkit_tpu_torch.fields import FR_MODULUS
     from plonkit_tpu_torch.gpu import group_ntt
-    n = 64
     pts = dev_srs_g1(2 * n, 42)
     rng = np.random.default_rng(23)
     w = [int.from_bytes(rng.bytes(32), "little") % FR_MODULUS for _ in range(n)]
@@ -538,6 +536,17 @@ def test_group_ntt_kernels_match_plain(card):
     t3 = group_ntt.g1_butterfly_plain(ec.infinity(n, card), hi, wr)[0]
     for a, b, c in zip(lo, t3, ec.neg(t3)):
         a[3], a[4] = b[3], c[4]                             # lo = [w]hi, lo = -[w]hi
+    return pts, lo, hi, wr
+
+
+def test_group_ntt_kernels_match_plain(card):
+    """K14 g1_butterfly and K15 g1_scale against their plain versions on the
+    card, Jacobian rows limb for limb (lo, hi or both at infinity, lo =
+    [w]hi, lo = -[w]hi, w = 0 and 1 planted), then the Lagrange form of 64
+    SRS points made on the card equal to the CPU's."""
+    from plonkit_tpu_torch.gpu import group_ntt
+    n = 64
+    pts, lo, hi, wr = _planted_butterflies(card, n)
     before = dict(group_ntt.launches)
     got = group_ntt.g1_butterfly(lo, hi, wr)
     want = group_ntt.g1_butterfly_plain(lo, hi, wr)
@@ -552,6 +561,60 @@ def test_group_ntt_kernels_match_plain(card):
     assert group_ntt.launches["g1_butterfly"] == before["g1_butterfly"] + 1 + 6
     assert all(np.array_equal(a, b)
                for a, b in zip(on_card, group_ntt.group_intt(x, y, inf, "cpu")))
+
+
+@pytest.mark.parametrize("lanes", [64, 1 << 11])
+def test_group_ntt_every_lane_group_matches_plain(card, lanes, monkeypatch):
+    """K14 at `lanes` lanes (the planted cases above) and, at 2^11 lanes,
+    K15 by 1/2^12 on the 2^12 points lo and hi, in every lane group the
+    kernels take, each forced through group_ntt.lane_group, against their
+    plain versions limb for limb."""
+    from plonkit_tpu_torch.fields import fr_inv
+    from plonkit_tpu_torch.gpu import group_ntt
+    _, lo, hi, wr = _planted_butterflies(card, lanes)
+    want = group_ntt.g1_butterfly_plain(lo, hi, wr)
+    scale = lanes == 1 << 11
+    if scale:
+        p, s = tuple(torch.cat([a, b]) for a, b in zip(lo, hi)), fr_inv(2 * lanes)
+        want_scale = group_ntt.g1_scale_plain(p, s)
+    for g in group_ntt.LANE_GROUPS:
+        monkeypatch.setattr(group_ntt, "lane_group", lambda lanes, sms, g=g: g)
+        got = group_ntt.g1_butterfly(lo, hi, wr)
+        assert all(torch.equal(a, b) for gs, xs in zip(got, want) for a, b in zip(gs, xs)), g
+        if scale:
+            assert all(torch.equal(a, b) for a, b in zip(group_ntt.g1_scale(p, s), want_scale)), g
+
+
+def test_group_ntt_lane_groups_follow_the_launch(card, monkeypatch):
+    """A 2^12 group_intt takes lane groups in each of its 12 K14 launches and
+    its K15 (g1_lane_groups counts 13); a K14 launch of 32 lanes for each
+    warp scheduler of the card takes one thread a lane, and gives the bits
+    of the 4-thread form on the same lanes."""
+    from plonkit_tpu_torch import profiling
+    from plonkit_tpu_torch.gpu import group_ntt
+    from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
+    x, y, inf = gen_crs_g1_device(16, 42, card)
+    before = profiling.counts()
+    group_ntt.group_intt(x[:1 << 12], y[:1 << 12], inf[:1 << 12], card)
+    after = profiling.counts()
+    assert after["launches.g1_butterfly"] - before["launches.g1_butterfly"] == 12
+    assert after["launches.g1_scale"] - before["launches.g1_scale"] == 1
+    assert after["g1_lane_groups"] - before["g1_lane_groups"] == 13
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    lanes = 32 * group_ntt.SCHEDULERS_PER_SM * sms
+    assert group_ntt.lane_group(lanes, sms) == 1 < group_ntt.lane_group(lanes - 1, sms)
+    r2 = mont.FQ.const_raw(mont.FQ.r2_mod_p, 2 * lanes, card)
+    base = tuple(fk.mul(mont.FQ, mont.to_tensor(c[:2 * lanes], card), r2) for c in (x, y)) \
+        + (mont.FQ.const(1, 2 * lanes, card),)
+    p = mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base))
+    lo, hi = tuple(a[:lanes] for a in p), tuple(a[lanes:] for a in p)
+    w = fk.mul(mont.FR, ntt.powers(5, lanes, card), mont.FR.const_raw(1, lanes, card))
+    got = group_ntt.g1_butterfly(lo, hi, w)
+    assert profiling.counts()["g1_lane_groups"] == after["g1_lane_groups"]
+    monkeypatch.setattr(group_ntt, "lane_group", lambda lanes, sms: 4)
+    want = group_ntt.g1_butterfly(lo, hi, w)
+    assert profiling.counts()["g1_lane_groups"] == after["g1_lane_groups"] + 1
+    assert all(torch.equal(a, b) for gs, xs in zip(got, want) for a, b in zip(gs, xs))
 
 
 @pytest.fixture(scope="module")

@@ -227,6 +227,30 @@ def test_glv_constants_in_cuda_source():
     assert f"kWindows = {group_ntt.GLV_WINDOWS};" in src and f"kTable = {group_ntt.TABLE};" in src
 
 
+@pytest.mark.parametrize("lanes,g", [(1 << 19, 1), (1 << 15, 1), (1 << 14, 2), (1 << 13, 4),
+                                     (1 << 12, 4), (1 << 11, 4), (64, 4), (1, 4)])
+def test_lane_group_on_132_sms(lanes, g):
+    """The lane group of a launch on an H100's 132 SMs (528 warp
+    schedulers): a thread a lane at group_intt's 2^19-lane stages of 2^20
+    points, 4 at the 2^12 key's 2^11 lanes and its K15's 2^12 points."""
+    assert group_ntt.lane_group(lanes, 132) == g
+
+
+def test_lane_group_edges_and_the_kernels_groups():
+    """A thread a lane from 32 lanes a warp scheduler up; below, the
+    smallest group that gives every scheduler a warp, at most 4; a card
+    of fewer SMs takes a thread a lane sooner; csrc/group_ntt.cu launches
+    every group lane_group gives."""
+    full = 32 * group_ntt.SCHEDULERS_PER_SM * 132
+    assert group_ntt.lane_group(full, 132) == 1 and group_ntt.lane_group(full - 1, 132) == 2
+    assert group_ntt.lane_group(full // 2, 132) == 2 and group_ntt.lane_group(full // 2 - 1, 132) == 4
+    assert group_ntt.lane_group(1 << 11, 16) == 1 and group_ntt.lane_group(1 << 11, 32) == 2
+    with open(os.path.join(build.CSRC, "group_ntt.cu")) as f:
+        src = f.read()
+    for g in group_ntt.LANE_GROUPS:
+        assert f"case {g}: return launch(std::integral_constant<int, {g}>{{}});" in src
+
+
 def _key_bytes(path):
     with open(path, "rb") as f:
         return f.read()
