@@ -85,8 +85,8 @@ def crs_lagrange_form(crs, domain_size: int, device="cuda") -> CrsLimbs:
     SetupForProver takes as key_lagrange_form and save() writes.  One
     stage, "lagrange key" (profiling: under PLONKIT_TPU_TRACE its trace is
     lagrange_key.json), which does not synchronize: the key ends in its
-    read-backs, so the stage's time is whole without, and a synchronize
-    after them costs tens of microseconds a key."""
+    read-back, so the stage's time is whole without, and a synchronize
+    after it costs tens of microseconds a key."""
     with stage("lagrange key", sync=False):
         if domain_size < 1 or domain_size & (domain_size - 1):
             raise ValueError(f"domain size {domain_size} is not a power of two")

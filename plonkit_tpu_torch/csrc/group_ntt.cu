@@ -7,8 +7,10 @@
 // python (plonkit_tpu/api.py:99 _group_ntt, one python g1_mul a
 // butterfly).  K14 is one radix-2 DIT stage over G1 points: lane i takes
 // lo, hi and the stage twiddle w (a canonical Fr value) and writes lo +
-// [w]hi and lo - [w]hi.  K15 multiplies every lane by one scalar (the
-// transform's 1/n).
+// [w]hi and lo - [w]hi.  Its lo and hi rows lie `stride` rows apart, so a
+// stage reads the even and odd rows of one buffer in place (stride 2) and
+// writes the two halves of another.  K15 multiplies every lane by one
+// scalar (the transform's 1/n).
 //
 // Both run one thread a lane and one ladder on BN254's endomorphism (GLV):
 // phi(x, y) = (beta x, y) = [lambda](x, y), so [k]P = [k1]P + [k2]phi(P)
@@ -460,14 +462,14 @@ g1_butterfly_kernel(const uint32_t* __restrict__ lx, const uint32_t* __restrict_
                     const uint32_t* __restrict__ w, uint32_t* __restrict__ ax,
                     uint32_t* __restrict__ ay, uint32_t* __restrict__ az,
                     uint32_t* __restrict__ bx, uint32_t* __restrict__ by,
-                    uint32_t* __restrict__ bz, int64_t n, FieldParams f) {
+                    uint32_t* __restrict__ bz, int64_t n, int64_t stride, FieldParams f) {
     const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
     if (i >= n) return;
     const Group<G> g = this_group<G>();
     const Fe k = load_fe(w, i);
-    Jac t = load_jac(hx, hy, hz, i);
+    Jac t = load_jac(hx, hy, hz, i * stride);
     if (!fe_is_one_raw(k)) t = glv_mul(t, glv_split(k), g, f);
-    const Jac lo = load_jac(lx, ly, lz, i);
+    const Jac lo = load_jac(lx, ly, lz, i * stride);
     Jac neg_t = t;
     neg_t.y = fe_sub(fe_zero(), t.y, f);
     const Jac a = group_add<G, false>(lo, t, g, f);
@@ -509,13 +511,14 @@ bool fq_params(FieldParams* f) { return field_params(1, f); }
 
 }  // namespace
 
-// w: canonical twiddles, each below r; group: threads a lane, 1, 2 or 4
+// w: canonical twiddles, each below r, one contiguous row a lane; lane i
+// reads row i * stride of lo and of hi; group: threads a lane, 1, 2 or 4
 extern "C" int plonkit_g1_butterfly(const void* lx, const void* ly, const void* lz,
                                     const void* hx, const void* hy, const void* hz, const void* w,
                                     void* ax, void* ay, void* az, void* bx, void* by, void* bz,
-                                    long long n, int group, void* stream) {
+                                    long long n, long long stride, int group, void* stream) {
     FieldParams f;
-    if (!fq_params(&f) || n < 0) return (int)cudaErrorInvalidValue;
+    if (!fq_params(&f) || n < 0 || stride < 1) return (int)cudaErrorInvalidValue;
     return with_group(group, [&](auto gc) {
         constexpr int G = decltype(gc)::value;
         if (n == 0) return (int)cudaGetLastError();
@@ -526,7 +529,7 @@ extern "C" int plonkit_g1_butterfly(const void* lx, const void* ly, const void* 
             (const uint32_t*)lx, (const uint32_t*)ly, (const uint32_t*)lz, (const uint32_t*)hx,
             (const uint32_t*)hy, (const uint32_t*)hz, (const uint32_t*)w, (uint32_t*)ax,
             (uint32_t*)ay, (uint32_t*)az, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)bz,
-            (int64_t)n, f);
+            (int64_t)n, (int64_t)stride, f);
         return (int)cudaGetLastError();
     });
 }

@@ -40,9 +40,10 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(op: str, spec: FieldSpec, *ins: torch.Tensor) -> torch.Tensor:
+def _launch(op: str, spec: FieldSpec, *ins: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
     a = ins[0]
-    out = torch.empty_like(a)
+    if out is None:
+        out = torch.empty_like(a)
     if a.shape[0]:
         fn = getattr(build.load("field"), "plonkit_field_" + op)
         build.check(fn(*(t.data_ptr() for t in ins), out.data_ptr(), a.shape[0],
@@ -51,12 +52,15 @@ def _launch(op: str, spec: FieldSpec, *ins: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K1: a * b * 2^-256 mod p."""
-    check_operands(a, b)
+def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+        out: torch.Tensor = None) -> torch.Tensor:
+    """K1: a * b * 2^-256 mod p, written into `out` (an operand like a and
+    b, such as a slice of rows of a larger buffer) where it is given."""
+    check_operands(a, b, *(() if out is None else (out,)))
     if not a.is_cuda:
-        return mont.mont_mul(spec, a, b)
-    return _launch("mul", spec, a, b)
+        prod = mont.mont_mul(spec, a, b)
+        return prod if out is None else out.copy_(prod)
+    return _launch("mul", spec, a, b, out=out)
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,7 @@ from ..profiling import count, register_launches, span
 from . import build, ec, field_kernels as fk, mont, ntt as gntt
 from .field_kernels import check_operands, stream_ptr
 from .fixed_base import affine_batch_to_limbs, to_affine_batch
-from .mont import FQ, FR, to_numpy, to_tensor
+from .mont import FQ, FR, NLIMBS, to_numpy
 
 launches = {"g1_butterfly": 0, "g1_scale": 0}
 register_launches(launches)
@@ -144,7 +144,41 @@ def scalar_mul_plain(p, nib: torch.Tensor, even: torch.Tensor):
 
 # -- K14 ---------------------------------------------------------------------
 
-def g1_butterfly_plain(lo, hi, w):
+def _butterfly_operands(lo, hi, w, out) -> tuple:
+    """(lanes, row stride, out) of a K14 call: w [N, 8] contiguous; lo and
+    hi Jacobian triples of [N, 8] int32 rows with dense limbs, all six one
+    whole number of rows apart (1 for contiguous rows; 2 for a stage's
+    even and odd rows, c[0::2] and c[1::2] of one buffer c); out a triple
+    of contiguous [2N, 8] buffers that share no memory with lo and hi (a
+    fresh one where it is not given): the lo outputs go to its rows [0,
+    N), the hi outputs to rows [N, 2N)."""
+    check_operands(w)
+    n = w.shape[0]
+    rows = (*lo, *hi)
+    for t in rows:
+        if (t.dtype != torch.int32 or t.shape != w.shape or t.device != w.device
+                or t.stride() != rows[0].stride() or t.stride(1) != 1
+                or t.stride(0) % NLIMBS or t.stride(0) < NLIMBS):
+            raise ValueError(f"K14 takes lo and hi as [{n}, {NLIMBS}] int32 rows on {w.device},"
+                             " one whole number of rows apart")
+        if t.is_cuda and t.data_ptr() % 16:
+            raise ValueError("operand rows must be 16-byte aligned")
+    if out is None:
+        out = tuple(torch.empty((2 * n, NLIMBS), dtype=torch.int32, device=w.device)
+                    for _ in range(3))
+    check_operands(*out)
+    if out[0].shape[0] != 2 * n or out[0].device != w.device:
+        raise ValueError(f"K14 writes a triple of [{2 * n}, {NLIMBS}] buffers on {w.device}")
+    held = {t.untyped_storage().data_ptr() for t in rows}
+    if any(o.untyped_storage().data_ptr() in held for o in out):
+        raise ValueError("K14's out shares memory with its lo and hi")
+    return n, rows[0].stride(0) // NLIMBS, out
+
+
+def g1_butterfly_plain(lo, hi, w, out=None):
+    """K14's plain version, in K14's operands and outputs
+    (_butterfly_operands)."""
+    n, _, out = _butterfly_operands(lo, hi, w, out)
     ks = FR.from_limbs_np(to_numpy(w))
     if any(k >= FR_MODULUS for k in ks):
         raise ValueError("a twiddle is not canonical: K14 takes w < r")
@@ -152,27 +186,31 @@ def g1_butterfly_plain(lo, hi, w):
     t = hi
     if not bool(one.all()):
         t = ec.select(one, hi, scalar_mul_plain(hi, *glv_scalars(ks, w.device)))
-    return ec.add(lo, t), ec.add(lo, ec.neg(t))
+    for o, a, b in zip(out, ec.add(lo, t), ec.add(lo, ec.neg(t))):
+        o[:n], o[n:] = a, b
+    return tuple(o[:n] for o in out), tuple(o[n:] for o in out)
 
 
-def g1_butterfly(lo, hi, w):
+def g1_butterfly(lo, hi, w, out=None):
     """K14, one radix-2 DIT stage over G1: (lo + [w]hi, lo - [w]hi) lane
-    by lane; lo and hi Jacobian triples, w [N, 8] canonical Fr rows.  Each
-    w must be below r: the card splits it unchecked (for w >= r its
-    products overflow their limbs and the point is wrong); the plain
-    version raises ValueError."""
-    check_operands(*lo, *hi, w)
+    by lane; lo and hi Jacobian triples, w [N, 8] canonical Fr rows.  A
+    stage of a transform passes the even and odd rows of one buffer as lo
+    and hi and another buffer as `out`, which takes the two halves: one
+    launch, no copy (_butterfly_operands).  Returns the two halves of out
+    as triples.  Each w must be below r: the card splits it unchecked (for
+    w >= r its products overflow their limbs and the point is wrong); the
+    plain version raises ValueError."""
     if not w.is_cuda:
-        return g1_butterfly_plain(lo, hi, w)
-    n = w.shape[0]
-    out = tuple(torch.empty_like(w) for _ in range(6))
+        return g1_butterfly_plain(lo, hi, w, out)
+    n, stride, out = _butterfly_operands(lo, hi, w, out)
     if n:
         lib = build.load("group_ntt")
-        build.check(lib.plonkit_g1_butterfly(*(t.data_ptr() for t in (*lo, *hi, w, *out)), n,
-                                             _group_of(n, w.device), stream_ptr(w)),
+        halves = (*(o[:n] for o in out), *(o[n:] for o in out))
+        build.check(lib.plonkit_g1_butterfly(*(t.data_ptr() for t in (*lo, *hi, w, *halves)), n,
+                                             stride, _group_of(n, w.device), stream_ptr(w)),
                     "K14 g1_butterfly")
         launches["g1_butterfly"] += 1
-    return out[:3], out[3:]
+    return tuple(o[:n] for o in out), tuple(o[n:] for o in out)
 
 
 # -- K15 ---------------------------------------------------------------------
@@ -216,42 +254,63 @@ def g1_scale(p, s: int):
 
 # -- the transform -------------------------------------------------------------
 
+def _upload_in(x, y, inf, base: int, half: int, device) -> tuple:
+    """One copy to the device of all a transform reads from the host: its
+    points' x and y rows, R^2 and Montgomery one over Fq, power_table of
+    the twiddles' base (canonical powers), the bit-reversal indices (int32)
+    and inf's bytes, as one int32 buffer.  Returns the device's views:
+    (xy [2n, 8], r2 [1, 8], one [1, 8], table, rev [n], inf [n] bool)."""
+    n = x.shape[0]
+    table = gntt.power_table(base, half, montgomery=False)
+    rows = np.concatenate([np.ascontiguousarray(x, dtype=np.uint32),
+                           np.ascontiguousarray(y, dtype=np.uint32),
+                           FQ.to_limbs_np([FQ.r2_mod_p, FQ.r_mod_p]), table]).view(np.int32)
+    flags = np.zeros(-(-n // 4) * 4, dtype=np.uint8)
+    flags[:n] = np.asarray(inf, dtype=bool)
+    dev = mont.upload(np.concatenate([rows.reshape(-1), gntt.bit_reversal(n).astype(np.int32),
+                                      flags.view(np.int32)]), device)
+    at = rows.size
+    rows = dev[:at].view(-1, NLIMBS)
+    return (rows[:2 * n], rows[2 * n:2 * n + 1], rows[2 * n + 1:2 * n + 2], rows[2 * n + 2:],
+            dev[at:at + n], dev[at + n:].view(torch.uint8)[:n].view(torch.bool))
+
+
 def group_intt(x, y, inf, device="cuda"):
     """The inverse NTT over G1 of n = 2^k affine points given as canonical
     limb rows (x, y [n, 8] uint32, inf [n] bool: load_crs_g1_limbs's
     layout): out_i = (1/n) sum_j [w^-ij] P_j for the domain's root w, in the
-    same layout.  For SRS points tau^j G these are L_i(tau) G.  The points
-    go to Montgomery form by K1, one gather puts them in bit-reversed order,
-    then the transposed Pease form of gpu/ntt.py's intt, over G1: k K14
-    stages on the even and odd rows, with w^-1's stage twiddles (ntt.powers,
-    then out of Montgomery form by K1), one K15 by 1/n, and the affine
+    same layout.  For SRS points tau^j G these are L_i(tau) G.  One copy
+    in (_upload_in) and one out (affine_batch_to_limbs), and nothing kept
+    from one call to the next.  The points go to Montgomery form by K1
+    into one [3, n, 8] buffer of X, Y and Z, one gather puts them in
+    bit-reversed order, then the transposed Pease form of gpu/ntt.py's
+    intt, over G1: k K14 stages, each reading the even and odd rows of one
+    buffer and writing the halves of the other, with w^-1's canonical
+    stage twiddles (ntt.powers_from), one K15 by 1/n, and the affine
     conversion of gpu/fixed_base.py (two K12 and one K13 for the inverse
     of Z, K1)."""
     n = x.shape[0]
     if n < 1 or n & (n - 1) or y.shape[0] != n or len(inf) != n:
         raise ValueError(f"{n} points: the transform takes a power of two of them")
-    with span("lagrange key: points in"):
-        fin = ~mont.upload(np.asarray(inf, dtype=bool), device)[:, None]
-        r2 = FQ.const_raw(FQ.r2_mod_p, n, device)
-        zero = torch.zeros((n, 8), dtype=torch.int32, device=device)
-        pts = (torch.where(fin, fk.mul(FQ, to_tensor(x, device), r2), zero),
-               torch.where(fin, fk.mul(FQ, to_tensor(y, device), r2), zero),
-               torch.where(fin, FQ.const(1, n, device), zero))
-        rev = mont.upload(gntt._bitrev_np(n), device)
-        pts = tuple(c.index_select(0, rev) for c in pts)
     half = n // 2
+    with span("lagrange key: points in"):
+        xy, r2, one, table, rev, at_inf = _upload_in(x, y, inf, fr_inv(get_domain_omega(n)),
+                                                     half, device)
+        pts = torch.empty((3, n, NLIMBS), dtype=torch.int32, device=device)
+        fk.mul(FQ, xy, r2.expand(2 * n, NLIMBS).contiguous(), out=pts[:2].view(2 * n, NLIMBS))
+        pts[2] = one
+        pts = pts.masked_fill_(at_inf[None, :, None], 0).index_select(1, rev)
     if half:
         with span("group ntt: twiddles"):
-            pows = gntt.powers(fr_inv(get_domain_omega(n)), half, device)
-            tw = fk.mul(FR, pows, FR.const_raw(1, half, device))
+            tw = gntt.powers_from(table, half)
         with span("group ntt: butterflies"):
+            spare = torch.empty_like(pts)
             for t in reversed(range(n.bit_length() - 1)):
-                lo, hi = g1_butterfly(tuple(c[0::2].contiguous() for c in pts),
-                                      tuple(c[1::2].contiguous() for c in pts),
-                                      gntt._stage_twiddles(tw, t, half))
-                pts = tuple(torch.cat([a, b]) for a, b in zip(lo, hi))
+                g1_butterfly(tuple(c[0::2] for c in pts), tuple(c[1::2] for c in pts),
+                             gntt._stage_twiddles(tw, t, half), out=tuple(spare))
+                pts, spare = spare, pts
     with span("group ntt: scale"):
-        pts = g1_scale(pts, fr_inv(n))
+        pts = g1_scale(tuple(pts), fr_inv(n))
     with span("group ntt: affine"):
         aff = to_affine_batch(pts)
     with span("lagrange key: limbs out"):

@@ -83,6 +83,15 @@ FR = FieldSpec(FR_MODULUS, 0)
 FQ = FieldSpec(FQ_MODULUS, 1)
 
 
+def raw_one(n: int, device) -> torch.Tensor:
+    """[n, 8]: every row the limbs of the integer 1 (either field's raw 1,
+    by which a Montgomery product leaves Montgomery form), made on
+    `device` with no copy from the host."""
+    one = torch.zeros((n, NLIMBS), dtype=torch.int32, device=device)
+    one[:, 0] = 1
+    return one
+
+
 def upload(arr: np.ndarray, device) -> torch.Tensor:
     """A numpy array as a tensor on `device`.  A copy to the card waits for
     its stream to drain (a pageable copy): profiling counts it as a device

@@ -111,26 +111,60 @@ def butterfly(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tens
     return out[:n], out[n:]
 
 
+def _table_split(n: int) -> tuple:
+    """(s, t) of power_table: s = 2^ceil(log2(n) / 2) rows of base^j, t =
+    ceil(n / s) rows of base^(s i)."""
+    s = 1 << ((max(n, 1) - 1).bit_length() + 1) // 2
+    return s, -(-n // s)
+
+
+def power_table(base: int, n: int, montgomery: bool = True) -> np.ndarray:
+    """The rows powers_from multiplies out to base^j for j < n: base^j for
+    j < s, then base^(s i) for i < t (_table_split), as [s + t, 8] uint32
+    Fr limbs in Montgomery form.  With montgomery=False the first s rows
+    are canonical instead, and so is every product of one of them by a
+    Montgomery row: the powers then come out in canonical form."""
+    s, t = _table_split(n)
+    low, high = [1], [1]
+    for _ in range(1, s):
+        low.append(low[-1] * base % R)
+    step = pow(base, s, R)
+    for _ in range(1, t):
+        high.append(high[-1] * step % R)
+    low = FR.to_mont_np(low) if montgomery else FR.to_limbs_np(low)
+    return np.concatenate([low, FR.to_mont_np(high[:t])])
+
+
+def powers_from(table: torch.Tensor, n: int) -> torch.Tensor:
+    """[n, 8]: base^j for j < n, in the form of power_table's first rows,
+    from those rows on the device: out[s i + j] = base^j * base^(s i), one
+    K1 over both parts of the table repeated on the device, so no copy
+    from the host."""
+    if not n:
+        return table[:0].clone()
+    s, t = _table_split(n)
+    return fk.mul(FR, table[:s].repeat(t, 1)[:n],
+                  table[s:s + t].repeat_interleave(s, dim=0)[:n])
+
+
 def powers(base: int, n: int, device) -> torch.Tensor:
-    """[1, base, base^2, ..., base^(n-1)] in Montgomery form, [n, 8]:
-    doubling, out[m:2m] = out[:m] * base^m, n K1 products in all."""
-    out = FR.const(1, 1, device)
-    m = 1
-    while m < n:
-        step = FR.const(pow(base, m, R), m, device)
-        out = torch.cat([out, fk.mul(FR, out, step)])
-        m *= 2
-    return out[:n]
+    """[1, base, base^2, ..., base^(n-1)] in Montgomery form, [n, 8]: one
+    upload of power_table, then powers_from's one K1."""
+    return powers_from(mont.to_tensor(power_table(base % R, n), device), n)
 
 
-@lru_cache(maxsize=None)
-def _bitrev_np(n: int) -> np.ndarray:
+_BYTE_REVERSAL = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], dtype=np.int64)
+
+
+def bit_reversal(n: int) -> np.ndarray:
+    """[n] int64: i -> i with its log2(n) bits reversed, n a power of two
+    (a byte at a time)."""
     bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
+    i = np.arange(n, dtype=np.int64)
     rev = np.zeros(n, dtype=np.int64)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
-    return rev
+    for shift in range(0, bits, 8):
+        rev = (rev << 8) | _BYTE_REVERSAL[(i >> shift) & 255]
+    return rev >> (-bits % 8)
 
 
 @lru_cache(maxsize=16)
@@ -141,7 +175,7 @@ def _tables(n: int, inverse: bool, device: str):
     if inverse:
         omega = fr_inv(omega)
     omega_pows = powers(omega, max(n // 2, 1), device)
-    rev = mont.upload(_bitrev_np(n), device)
+    rev = mont.upload(bit_reversal(n), device)
     n_inv = FR.const(fr_inv(n), 1, device)
     return omega_pows, rev, n_inv
 

@@ -617,6 +617,41 @@ def test_group_ntt_lane_groups_follow_the_launch(card, monkeypatch):
     assert all(torch.equal(a, b) for gs, xs in zip(got, want) for a, b in zip(gs, xs))
 
 
+@pytest.mark.parametrize("lanes,g", [(1 << 11, 4), (1 << 19, 1)])
+def test_group_ntt_in_place_stage_matches_plain(card, lanes, g):
+    """K14 as group_intt launches it, reading the even and odd rows of one
+    [3, 2N, 8] buffer in place and writing the two halves of another,
+    against its plain version limb for limb: every lane at 2^11 lanes (g =
+    4 on the H100), one lane in 128 at 2^19 (g = 1: the plain ladder over
+    all 2^19 lanes would take minutes).  Stage 0's twiddles of the 2N-point
+    inverse transform, w = 0 planted, lo and hi at infinity in lanes 3, 4."""
+    from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
+    from plonkit_tpu_torch.gpu import group_ntt
+    from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
+    n = 2 * lanes
+    x, y, _ = gen_crs_g1_device(n.bit_length() - 1, 42, card)
+    r2 = mont.FQ.const_raw(mont.FQ.r2_mod_p, n, card)
+    base = tuple(fk.mul(mont.FQ, mont.to_tensor(c, card), r2) for c in (x, y)) \
+        + (mont.FQ.const(1, n, card),)
+    buf = torch.stack(mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base)))  # Z != 1
+    buf[:, 6] = 0                                       # lane 3's lo at infinity
+    buf[:, 9] = 0                                       # lane 4's hi at infinity
+    w = fk.mul(mont.FR, ntt.powers(fr_inv(get_domain_omega(n)), lanes, card),
+               mont.raw_one(lanes, card))
+    w[5] = 0
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert group_ntt.lane_group(lanes, sms) == g
+    spare = torch.empty_like(buf)
+    lo, hi = group_ntt.g1_butterfly(tuple(c[0::2] for c in buf), tuple(c[1::2] for c in buf), w,
+                                    out=tuple(spare))
+    at = torch.cat([torch.arange(8, device=card),
+                    torch.arange(8, lanes, max(1, lanes >> 12), device=card)])
+    want = group_ntt.g1_butterfly_plain(tuple(c[0::2][at] for c in buf),
+                                        tuple(c[1::2][at] for c in buf), w[at])
+    got = (tuple(c[at] for c in lo), tuple(c[at] for c in hi))
+    assert all(torch.equal(a, b) for gs, xs in zip(got, want) for a, b in zip(gs, xs))
+
+
 @pytest.fixture(scope="module")
 def monomial_key_2p12():
     """The 2^12 tau = 42 monomial key made on the card, after one Lagrange
@@ -686,3 +721,21 @@ def test_lagrange_key_h2d_bytes_are_the_traced_copies(monomial_key_2p12, tmp_pat
               and e.get("cat") == "gpu_memcpy" and e["name"].startswith("Memcpy HtoD")]
     print(f"h2d_bytes {counted}; traced: {len(copies)} HtoD copies, {sum(copies)} bytes")
     assert copies and counted == sum(copies)
+
+
+def test_lagrange_key_at_a_fresh_domain_counts_the_same_twice(monomial_key_2p12):
+    """A key of 2^10 points, a domain no other test here derives, then the
+    same key again: both calls count the same device_waits and h2d_bytes,
+    each at most 4 waits, and give the same limbs, so no table that depends
+    on the domain is carried from one call to the next."""
+    from plonkit_tpu_torch import profiling
+    from plonkit_tpu_torch.api import crs_lagrange_form
+    counted, keys = [], []
+    for _ in range(2):
+        before = profiling.counts()
+        keys.append(crs_lagrange_form(monomial_key_2p12, 1 << 10).g1_limbs())
+        after = profiling.counts()
+        counted.append({k: after[k] - before[k] for k in ("device_waits", "h2d_bytes")})
+    print(f"first call {counted[0]}; second {counted[1]}")
+    assert counted[0] == counted[1] and counted[0]["device_waits"] <= 4
+    assert all(np.array_equal(a, b) for a, b in zip(*keys))

@@ -129,6 +129,50 @@ def test_plain_butterfly_equals_host_curve(kind):
     assert affine(a)[4] is None
 
 
+@pytest.mark.parametrize("log_n", [4, 6, 8])
+def test_plain_butterfly_in_place_equals_slices_and_cat(log_n):
+    """A stage as group_intt runs it, K14's plain version reading the even
+    and odd rows of one [3, n, 8] buffer in place and writing the halves of
+    another (out=), equals the stage over contiguous copies of the even and
+    odd rows with its halves put together by cat, limb for limb, over n
+    lanes of seeded points (one at infinity) and random twiddles with 1 and
+    0 among them."""
+    n = 1 << log_n
+    rng = np.random.default_rng(SEED + log_n)
+    pts = [g1_mul(G1_GEN, int.from_bytes(rng.bytes(32), "little") % R) for _ in range(n)]
+    pts[3] = None
+    buf = torch.stack(jacobian(pts))
+    w = _twiddles(rng, n // 2, "random")
+    w[1], w[2] = 1, 0
+    w = scalar_rows(w)
+    spare = torch.full_like(buf, -1)
+    lo, hi = group_ntt.g1_butterfly(tuple(c[0::2] for c in buf), tuple(c[1::2] for c in buf), w,
+                                    out=tuple(spare))
+    a, b = group_ntt.g1_butterfly(tuple(c[0::2].contiguous() for c in buf),
+                                  tuple(c[1::2].contiguous() for c in buf), w)
+    want = torch.stack([torch.cat([x, y]) for x, y in zip(a, b)])
+    assert torch.equal(spare, want)
+    assert all(t.data_ptr() == c.data_ptr() for t, c in zip(lo, spare))
+    assert all(t.data_ptr() == c[n // 2:].data_ptr() for t, c in zip(hi, spare))
+
+
+def test_butterfly_refuses_operands_it_cannot_read_in_place():
+    """K14's operands: lo and hi one whole number of rows apart, all six
+    alike; out a triple of 2N rows that shares no memory with them."""
+    p = torch.stack(jacobian([G1_GEN] * 4))
+    w = scalar_rows([1, 1])
+    even, odd = tuple(c[0::2] for c in p), tuple(c[1::2] for c in p)
+    with pytest.raises(ValueError):                     # hi contiguous, lo strided
+        group_ntt.g1_butterfly(even, tuple(c.contiguous() for c in odd), w)
+    with pytest.raises(ValueError):                     # out is the input
+        group_ntt.g1_butterfly(even, odd, w, out=tuple(p))
+    with pytest.raises(ValueError):                     # out of N rows, not 2N
+        group_ntt.g1_butterfly(even, odd, w, out=tuple(torch.empty_like(c) for c in even))
+    sparse = torch.zeros((3, 2, 2 * 8), dtype=torch.int32)[:, :, ::2]
+    with pytest.raises(ValueError):                     # limbs not dense
+        group_ntt.g1_butterfly(tuple(sparse), tuple(sparse), w)
+
+
 @pytest.mark.parametrize("w", [R, 2 * R + 1, (1 << 256) - 1])
 def test_plain_butterfly_rejects_a_non_canonical_twiddle(w):
     hi = jacobian([G1_GEN, G1_GEN])

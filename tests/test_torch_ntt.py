@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from plonkit_tpu.fields import FR_GENERATOR, FR_MODULUS as R
+from plonkit_tpu.fields import FR_GENERATOR, FR_MODULUS as R, fr_inv, get_domain_omega
 from plonkit_tpu.plonk import poly_host
 from plonkit_tpu.tpu import mont as ref_mont
 from plonkit_tpu.tpu import ntt as ref_ntt
@@ -84,6 +84,42 @@ def test_coset_transforms_match_reference(n):
 def test_powers_match_host():
     got = ints(ntt.powers(7, 37, "cpu"))
     assert got == [pow(7, i, R) for i in range(37)]
+
+
+def _powers_by_doubling(base: int, n: int) -> torch.Tensor:
+    """The doubling form powers had, one upload a step: out[m:2m] = out[:m]
+    * base^m over Montgomery constants made on the host."""
+    out = mont.FR.const(1, 1, "cpu")
+    m = 1
+    while m < n:
+        step = mont.FR.const(pow(base, m, R), m, "cpu")
+        out = torch.cat([out, mont.mont_mul(mont.FR, out, step)])
+        m *= 2
+    return out[:n]
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 8, 37, 64, 100, 2048])
+def test_powers_from_one_upload_equal_the_doubling_form(n):
+    """ntt.powers (one upload of power_table, one K1 over its two parts
+    repeated on the device) gives the doubling form's rows bit for bit;
+    power_table with montgomery=False gives the canonical powers, which
+    the Montgomery ones leave by a product with the raw 1."""
+    base = fr_inv(get_domain_omega(4096))
+    want = _powers_by_doubling(base, n)
+    assert torch.equal(ntt.powers(base, n, "cpu"), want)
+    s, t = ntt._table_split(n)
+    assert s * t >= n and ntt.power_table(base, n).shape == (s + t, mont.NLIMBS)
+    table = mont.to_tensor(ntt.power_table(base, n, montgomery=False), "cpu")
+    canonical = ntt.powers_from(table, n)
+    assert torch.equal(canonical, mont.mont_mul(mont.FR, want, mont.raw_one(n, "cpu")))
+
+
+def test_bit_reversal_reverses_the_index_bits():
+    for bits in range(18):
+        n = 1 << bits
+        got = ntt.bit_reversal(n)
+        assert got.dtype == np.int64
+        assert got.tolist() == [int(format(i, f"0{bits}b")[::-1] or "0", 2) for i in range(n)]
 
 
 def test_split_coset_transforms_match_monolithic(monkeypatch):

@@ -324,13 +324,22 @@ KEY_SPANS = {"lagrange key", "lagrange key: points in", "group ntt: twiddles",
 def test_lagrange_key_spans_on_the_cpu():
     """A 2^4 key of the in-repo tau = 42 key through the plain versions:
     [L_i(42)] G lane by lane, its parts named by span, no wait, no byte."""
+    _lagrange_key_by_span(16)
+
+
+def test_lagrange_key_spans_at_2p8_on_the_cpu():
+    """The same at 2^8: eight in-place stages, the same six spans."""
+    _lagrange_key_by_span(256)
+
+
+def _lagrange_key_by_span(n: int):
     from plonkit_tpu_torch import api
     from plonkit_tpu_torch.curve import G1_GEN, g1_mul
     from plonkit_tpu_torch.fields import FR_MODULUS as R, fr_inv, get_domain_omega
     from plonkit_tpu_torch.gpu.mont import FQ
     from plonkit_tpu_torch.serialization import CrsHandle
     from test_torch_prove import KEY
-    n, tau = 16, 42
+    tau = 42
     before = profiling.counts()
     profiling.reset()
     x, y, inf = api.crs_lagrange_form(CrsHandle(KEY), n, device="cpu").g1_limbs()
