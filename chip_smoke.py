@@ -72,9 +72,10 @@ Phases, each printing a JSON line with its wall seconds:
    planted ones among them; and both again at the shapes of the
    benchmark's Lagrange key, K14 on stage 0 of a 2^12-point inverse
    transform (2^11 lanes) and K15 on its 2^12 points, every lane held
-   against the plain version, each row with the lane group
-   (group_ntt.lane_group) its launch took.  Times are CUDA events after a
-   sleep kernel that holds the card while the host queues the calls;
+   against the plain version, each row with the lane group and product
+   split (group_ntt.lane_group, product_split) its launch took.  Times
+   are CUDA events after a sleep kernel that holds the card while the
+   host queues the calls;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
@@ -1303,6 +1304,8 @@ def _group_ntt_rows(ctx) -> list:
         k15["mismatches"] += 1
     k14["lane_group"] = group_ntt.lane_group(half, _sm_count())
     k15["lane_group"] = group_ntt.lane_group(n, _sm_count())
+    k14["product_split"] = group_ntt.product_split(half, _sm_count())
+    k15["product_split"] = group_ntt.product_split(n, _sm_count())
     k14["key_2p12"], k15["key_2p12"] = _group_ntt_key_shapes(pts)
     for row in (k14, k15):
         row["mismatches"] += row["key_2p12"]["mismatches"]
@@ -1352,6 +1355,7 @@ def _key_shape(kernel, plain, lanes: int, bytes_moved: int, least: int) -> dict:
     ms = time_ms(kernel, 20)
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, least / INT32_MUL_PER_S) * 1e3
     return {"lanes": lanes, "lane_group": group_ntt.lane_group(lanes, _sm_count()),
+            "product_split": group_ntt.product_split(lanes, _sm_count()),
             "ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
             "mismatches": _mismatches(got, want), "max_abs_err": _max_abs_err(got, want),
             "plain_ms": plain_ms, "bound_int32_muls": least, "bound_bytes": bytes_moved}

@@ -48,8 +48,10 @@ _ARGTYPES = {
                 "plonkit_fold_redc": [_P, _P] + [ctypes.c_longlong] * 2 + [_P]},
     "scan": {"plonkit_field_scan": [_P] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [_P],
              "plonkit_field_inverse": [_P] * 3 + [ctypes.c_longlong, ctypes.c_int, _P]},
-    "group_ntt": {"plonkit_g1_butterfly": [_P] * 13 + [ctypes.c_longlong] * 2 + [ctypes.c_int, _P],
-                  "plonkit_g1_scale": [_P] * 7 + [ctypes.c_longlong, ctypes.c_int, _P]},
+    "group_ntt": {"plonkit_g1_butterfly": [_P] * 13 + [ctypes.c_longlong] * 2
+                  + [ctypes.c_int] * 2 + [_P],
+                  "plonkit_g1_scale": [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P],
+                  "plonkit_fq_split_mul": [_P] * 3 + [ctypes.c_longlong, _P]},
 }
 
 _libs = {}

@@ -22,9 +22,12 @@ tensor takes the plain version; a CUDA tensor launches the kernel on the
 current stream or raises.  `launches` counts kernel launches, one per call
 that launched.
 
-A launch runs each lane on a group of lane_group(lanes, SMs) threads of a
-warp, which share the ladder's products; profiling's `g1_lane_groups`
-counts the launches whose group has more than one thread.
+A launch runs each lane on lane_group(lanes, SMs) sub-groups of
+product_split(lanes, SMs) threads of a warp: the sub-groups share out the
+ladder's products, and the threads of a sub-group split each product
+between them.  Profiling's `g1_lane_groups` counts the launches whose lane
+has more than one sub-group, `g1_split_products` those whose products are
+split.
 """
 
 import functools
@@ -43,10 +46,12 @@ from .mont import FQ, FR, NLIMBS, to_numpy
 launches = {"g1_butterfly": 0, "g1_scale": 0}
 register_launches(launches)
 count("g1_lane_groups", 0)
+count("g1_split_products", 0)
 
 GLV_WINDOWS = 32        # 4-bit windows of a half, |k_i| < 2^128 (csrc/group_ntt.cu)
 TABLE = 8               # the odd multiples P, 3P, ..., 15P
-LANE_GROUPS = (1, 2, 4)     # threads a lane the kernels take
+LANE_GROUPS = (1, 2, 4)     # sub-groups a lane the kernels take (threads, unsplit)
+PRODUCT_SPLITS = (1, 2)     # threads a sub-group the kernels take (2 with 4 sub-groups)
 SCHEDULERS_PER_SM = 4       # warp schedulers of an SM (the H100's, and every card's since Volta)
 
 
@@ -63,16 +68,33 @@ def lane_group(lanes: int, sms: int) -> int:
     return LANE_GROUPS[-1]
 
 
+def product_split(lanes: int, sms: int) -> int:
+    """Threads of one warp that K14 or K15 splits each Montgomery product
+    of a lane's ladder over, on a card of `sms` SMs: 2 where lane_group's 4
+    threads a lane, doubled, still give each warp scheduler of the card at
+    most one warp (up to 2,112 lanes on the H100: the 2^12 key's 2^11-lane
+    stages), else 1.  There a stage lasts one lane's chain of products and
+    the split shortens it; with two warps a scheduler the split's added
+    instructions cost more than it saves (2^12 lanes: 0.448 ms at g = 4,
+    0.578 split; PERF.md, the crossover)."""
+    fits = lanes * LANE_GROUPS[-1] * PRODUCT_SPLITS[-1] <= 32 * SCHEDULERS_PER_SM * sms
+    return PRODUCT_SPLITS[-1] if fits else PRODUCT_SPLITS[0]
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _group_of(lanes: int, device: torch.device) -> int:
-    g = lane_group(lanes, _sm_count(device))
+def _group_of(lanes: int, device: torch.device) -> tuple:
+    """(sub-groups, threads a sub-group) of a launch of `lanes` lanes."""
+    sms = _sm_count(device)
+    g, s = lane_group(lanes, sms), product_split(lanes, sms)
     if g > 1:
         count("g1_lane_groups")
-    return g
+    if s > 1:
+        count("g1_split_products")
+    return g, s
 
 
 def glv_recode(k: int) -> tuple:
@@ -207,7 +229,7 @@ def g1_butterfly(lo, hi, w, out=None):
         lib = build.load("group_ntt")
         halves = (*(o[:n] for o in out), *(o[n:] for o in out))
         build.check(lib.plonkit_g1_butterfly(*(t.data_ptr() for t in (*lo, *hi, w, *halves)), n,
-                                             stride, _group_of(n, w.device), stream_ptr(w)),
+                                             stride, *_group_of(n, w.device), stream_ptr(w)),
                     "K14 g1_butterfly")
         launches["g1_butterfly"] += 1
     return tuple(o[:n] for o in out), tuple(o[n:] for o in out)
@@ -246,9 +268,25 @@ def g1_scale(p, s: int):
         args = scale_args(s)
         lib = build.load("group_ntt")
         build.check(lib.plonkit_g1_scale(*(t.data_ptr() for t in (*p, *out)), args.ctypes.data,
-                                         n, _group_of(n, p[0].device), stream_ptr(p[0])),
+                                         n, *_group_of(n, p[0].device), stream_ptr(p[0])),
                     "K15 g1_scale")
         launches["g1_scale"] += 1
+    return out
+
+
+def split_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * 2^-256 mod q over [N, 8] Montgomery Fq rows on the card by
+    K14 and K15's split product alone, two threads a row: the tests' hold
+    on it beside K1's mul.  No plain version: gpu/mont.mont_mul is the
+    same function."""
+    check_operands(a, b)
+    if not a.is_cuda:
+        raise ValueError("the split product runs on the card only")
+    out = torch.empty_like(a)
+    if a.shape[0]:
+        build.check(build.load("group_ntt").plonkit_fq_split_mul(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], stream_ptr(a)),
+            "split_mul")
     return out
 
 

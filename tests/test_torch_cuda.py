@@ -563,12 +563,17 @@ def test_group_ntt_kernels_match_plain(card):
                for a, b in zip(on_card, group_ntt.group_intt(x, y, inf, "cpu")))
 
 
+# every (lane group, product split) the kernels take
+GROUP_SPLITS = [(1, 1), (2, 1), (4, 1), (4, 2)]
+
+
 @pytest.mark.parametrize("lanes", [64, 1 << 11])
 def test_group_ntt_every_lane_group_matches_plain(card, lanes, monkeypatch):
     """K14 at `lanes` lanes (the planted cases above) and, at 2^11 lanes,
-    K15 by 1/2^12 on the 2^12 points lo and hi, in every lane group the
-    kernels take, each forced through group_ntt.lane_group, against their
-    plain versions limb for limb."""
+    K15 by 1/2^12 on the 2^12 points lo and hi, in every lane group and
+    product split the kernels take, each forced through
+    group_ntt.lane_group and group_ntt.product_split, against their plain
+    versions limb for limb."""
     from plonkit_tpu_torch.fields import fr_inv
     from plonkit_tpu_torch.gpu import group_ntt
     _, lo, hi, wr = _planted_butterflies(card, lanes)
@@ -577,19 +582,57 @@ def test_group_ntt_every_lane_group_matches_plain(card, lanes, monkeypatch):
     if scale:
         p, s = tuple(torch.cat([a, b]) for a, b in zip(lo, hi)), fr_inv(2 * lanes)
         want_scale = group_ntt.g1_scale_plain(p, s)
-    for g in group_ntt.LANE_GROUPS:
+    for g, sp in GROUP_SPLITS:
         monkeypatch.setattr(group_ntt, "lane_group", lambda lanes, sms, g=g: g)
+        monkeypatch.setattr(group_ntt, "product_split", lambda lanes, sms, sp=sp: sp)
         got = group_ntt.g1_butterfly(lo, hi, wr)
-        assert all(torch.equal(a, b) for gs, xs in zip(got, want) for a, b in zip(gs, xs)), g
+        assert all(torch.equal(a, b) for gs, xs in zip(got, want) for a, b in zip(gs, xs)), (g, sp)
         if scale:
-            assert all(torch.equal(a, b) for a, b in zip(group_ntt.g1_scale(p, s), want_scale)), g
+            assert all(torch.equal(a, b)
+                       for a, b in zip(group_ntt.g1_scale(p, s), want_scale)), (g, sp)
+
+
+@pytest.mark.parametrize("lanes", [1, 37, 1000])
+def test_group_ntt_ragged_launches_match_one_thread(card, lanes, monkeypatch):
+    """A launch whose last warp runs past its lanes (those threads run the
+    last lane and store nothing): K14 and K15 in every lane group and
+    product split equal to one thread a lane, limb for limb."""
+    from plonkit_tpu_torch.gpu import group_ntt
+    _, lo, hi, wr = _planted_butterflies(card, max(lanes, 8))
+    lo, hi, wr = tuple(a[:lanes] for a in lo), tuple(a[:lanes] for a in hi), wr[:lanes]
+    got = {}
+    for g, sp in GROUP_SPLITS:
+        monkeypatch.setattr(group_ntt, "lane_group", lambda lanes, sms, g=g: g)
+        monkeypatch.setattr(group_ntt, "product_split", lambda lanes, sms, sp=sp: sp)
+        got[g, sp] = (torch.cat([t for half in group_ntt.g1_butterfly(lo, hi, wr) for t in half]),
+                      torch.cat(group_ntt.g1_scale(hi, 2 ** 200 + 7)))
+    for pair, (k14, k15) in got.items():
+        assert torch.equal(k14, got[1, 1][0]) and torch.equal(k15, got[1, 1][1]), pair
+
+
+def test_split_product_matches_k1_mul(card):
+    """The split product alone (group_ntt.split_mul, two threads a product)
+    against K1's mul over Fq: 0, 1, p - 1, p - 2, limbs of 0xffffffff below
+    p and seeded values, each against every edge, and squares."""
+    from plonkit_tpu_torch.gpu import group_ntt
+    q = mont.FQ.p
+    edge = [0, 1, q - 1, q - 2, q - 3, (1 << 224) - 1, (1 << 253) - 1, (q >> 32) << 32,
+            q - (1 << 32), (1 << 128) - 1]
+    rng = np.random.default_rng(31)
+    vals = [int.from_bytes(rng.bytes(32), "little") % q for _ in range(1023)] + [q - 1]
+    a = mont.to_tensor(mont.FQ.to_limbs_np(edge * len(edge) + vals), card)
+    b = mont.to_tensor(mont.FQ.to_limbs_np([e for e in edge for _ in edge] + vals[::-1]), card)
+    for x, y in ((a, b), (b, a), (a, a)):
+        assert torch.equal(group_ntt.split_mul(x, y), fk.mul(mont.FQ, x, y))
 
 
 def test_group_ntt_lane_groups_follow_the_launch(card, monkeypatch):
     """A 2^12 group_intt takes lane groups in each of its 12 K14 launches and
-    its K15 (g1_lane_groups counts 13); a K14 launch of 32 lanes for each
-    warp scheduler of the card takes one thread a lane, and gives the bits
-    of the 4-thread form on the same lanes."""
+    its K15 (g1_lane_groups counts 13), and splits the products of the
+    launches that product_split gives 2 (its 12 stages of 2^11 lanes on the
+    H100); a K14 launch of 32 lanes for each warp scheduler of the card
+    takes one thread a lane and splits none, and gives the bits of the
+    4-thread form on the same lanes."""
     from plonkit_tpu_torch import profiling
     from plonkit_tpu_torch.gpu import group_ntt
     from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
@@ -601,6 +644,10 @@ def test_group_ntt_lane_groups_follow_the_launch(card, monkeypatch):
     assert after["launches.g1_scale"] - before["launches.g1_scale"] == 1
     assert after["g1_lane_groups"] - before["g1_lane_groups"] == 13
     sms = torch.cuda.get_device_properties(card).multi_processor_count
+    split = [group_ntt.product_split(n, sms) > 1 for n in [1 << 11] * 12 + [1 << 12]]
+    assert after["g1_split_products"] - before["g1_split_products"] == sum(split)
+    if sms == 132:
+        assert sum(split) == 12
     lanes = 32 * group_ntt.SCHEDULERS_PER_SM * sms
     assert group_ntt.lane_group(lanes, sms) == 1 < group_ntt.lane_group(lanes - 1, sms)
     r2 = mont.FQ.const_raw(mont.FQ.r2_mod_p, 2 * lanes, card)
@@ -611,6 +658,7 @@ def test_group_ntt_lane_groups_follow_the_launch(card, monkeypatch):
     w = fk.mul(mont.FR, ntt.powers(5, lanes, card), mont.FR.const_raw(1, lanes, card))
     got = group_ntt.g1_butterfly(lo, hi, w)
     assert profiling.counts()["g1_lane_groups"] == after["g1_lane_groups"]
+    assert profiling.counts()["g1_split_products"] == after["g1_split_products"]
     monkeypatch.setattr(group_ntt, "lane_group", lambda lanes, sms: 4)
     want = group_ntt.g1_butterfly(lo, hi, w)
     assert profiling.counts()["g1_lane_groups"] == after["g1_lane_groups"] + 1
@@ -641,9 +689,13 @@ def test_group_ntt_in_place_stage_matches_plain(card, lanes, g):
     w[5] = 0
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert group_ntt.lane_group(lanes, sms) == g
+    from plonkit_tpu_torch import profiling
+    split = profiling.counts()["g1_split_products"]
     spare = torch.empty_like(buf)
     lo, hi = group_ntt.g1_butterfly(tuple(c[0::2] for c in buf), tuple(c[1::2] for c in buf), w,
                                     out=tuple(spare))
+    grew = profiling.counts()["g1_split_products"] - split
+    assert grew == (group_ntt.product_split(lanes, sms) > 1)
     at = torch.cat([torch.arange(8, device=card),
                     torch.arange(8, lanes, max(1, lanes >> 12), device=card)])
     want = group_ntt.g1_butterfly_plain(tuple(c[0::2][at] for c in buf),

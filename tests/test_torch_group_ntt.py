@@ -295,6 +295,49 @@ def test_lane_group_edges_and_the_kernels_groups():
         assert f"case {g}: return launch(std::integral_constant<int, {g}>{{}});" in src
 
 
+@pytest.mark.parametrize("lanes,s", [(1 << 19, 1), (1 << 15, 1), (1 << 14, 1), (1 << 13, 1),
+                                     (1 << 12, 1), (1 << 11, 2), (64, 2), (1, 2)])
+def test_product_split_on_132_sms(lanes, s):
+    """The product split of a launch on an H100's 132 SMs: two threads a
+    product at the 2^12 key's 2^11-lane stages (g = 4, 512 warps for 528
+    schedulers), one from 2^12 lanes up (its K15's 2^12 points, where the
+    split's 1,024 warps would double up on the schedulers), and at the
+    2^19-lane stages of 2^20 points."""
+    assert group_ntt.product_split(lanes, 132) == s
+
+
+def test_product_split_edges_and_the_kernels_pairs():
+    """Two threads a product while 8 threads a lane give each warp
+    scheduler at most one warp, one beyond; a card of fewer SMs splits
+    later; the split only ever comes with lane groups of 4, and
+    csrc/group_ntt.cu launches every (g, S) the two rules give."""
+    edge = 32 * group_ntt.SCHEDULERS_PER_SM * 132 // 8
+    assert group_ntt.product_split(edge, 132) == 2 and group_ntt.product_split(edge + 1, 132) == 1
+    assert group_ntt.product_split(1 << 11, 16) == 1 and group_ntt.product_split(1 << 8, 16) == 2
+    pairs = {(group_ntt.lane_group(n, sms), group_ntt.product_split(n, sms))
+             for sms in (1, 16, 78, 108, 114, 132, 144) for n in [1 << k for k in range(21)]
+             + [3, 1000, 2111, 2113, 4223, 4225, 16895]}
+    assert pairs == {(1, 1), (2, 1), (4, 1), (4, 2)}
+    assert set(group_ntt.PRODUCT_SPLITS) == {s for _, s in pairs}
+    with open(os.path.join(build.CSRC, "group_ntt.cu")) as f:
+        src = f.read()
+    for g, s in pairs:
+        if s == 1:
+            assert f"case {g}: return launch(std::integral_constant<int, {g}>{{}});" in src
+        else:
+            assert (f"if (group == {g} && split == {s})\n        return launch("
+                    f"std::integral_constant<int, {g}>{{}}, std::integral_constant<int, {s}>{{}});"
+                    in src)
+
+
+def test_split_mul_runs_on_the_card_only():
+    """The split product has no CPU form: a CPU tensor raises (its plain
+    version is gpu/mont.mont_mul)."""
+    rows = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        group_ntt.split_mul(rows, rows)
+
+
 def _key_bytes(path):
     with open(path, "rb") as f:
         return f.read()

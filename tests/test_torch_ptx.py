@@ -1,12 +1,14 @@
 """The PTX of the port's field arithmetic (plonkit_tpu_torch/csrc/field.cuh,
-and the carry chains of K13 field_inverse in csrc/scan.cu) run here,
+the carry chains of K13 field_inverse in csrc/scan.cu, and K14 / K15's
+product split over two threads in csrc/group_ntt.cu) run here,
 without a card, by a small emulator of the carry-flag
 instructions it uses (add/addc, sub/subc, mul, mad/madc with .lo/.hi and
 .cc): each asm statement's template is read from the header, its operands
 bound in the order of its constraint list, and the C++ around the
 statements (which statement runs when, with which limbs) is mirrored here.
 The Montgomery product, add and sub are held against big-integer
-arithmetic for Fr and Fq on edge and seeded random values, K13's almost
+arithmetic for Fr and Fq on edge and seeded random values, so is the split
+product (its two threads' steps and shuffles mirrored here), K13's almost
 Montgomery inverse (its loop mirrored here over the emulated chains)
 against pow(a, -1, p), and every
 chain that ends without .cc must drop a carry of 0 (but the add of p
@@ -24,6 +26,7 @@ from plonkit_tpu_torch.fields import FQ_MODULUS, FR_MODULUS
 CSRC = Path(__file__).parents[1] / "plonkit_tpu_torch" / "csrc"
 SRC = (CSRC / "field.cuh").read_text()
 SCAN_SRC = (CSRC / "scan.cu").read_text()
+GROUP_SRC = (CSRC / "group_ntt.cu").read_text()
 MASK = (1 << 32) - 1
 
 
@@ -237,3 +240,62 @@ def test_scan_ptx_uses_only_emulated_instructions():
     others are the look-back's release stores and acquire loads and the
     staging copies)."""
     assert SCAN_SRC.count("asm(") == 3 and len(ADD_RAW) == len(SUB_RAW) == len(DIV_POW2) == 1
+
+
+SPLIT_SHIFT = _asm_blocks("__device__ __forceinline__ void split_shift_odd", GROUP_SRC)
+SPLIT_MAD = _asm_blocks("__device__ __forceinline__ void split_mad", GROUP_SRC)
+SPLIT_ADD2 = _asm_blocks("__device__ __forceinline__ void split_add2", GROUP_SRC)
+SPLIT_MUL = _asm_blocks("__device__ __forceinline__ Fe split_mont_mul", GROUP_SRC)
+
+
+def split_mont_mul(a, b, p, n0):
+    """csrc/group_ntt.cu split_mont_mul on its two threads (rank 0 holds
+    a's and p's limbs 0-3, rank 1 limbs 4-7): nine steps of split_step, the
+    halves of each rank's window trading roles from step to step, the
+    shuffles of m and of the lowest word done between the steps, then the
+    windows' merge, their sum and one conditional subtraction."""
+    A, P = (a[:4], a[4:]), (p[:4], p[4:])
+    e, o = [[0] * 6, [0] * 6], [[0] * 6, [0] * 6]
+    m_in, h_in = [0, 0], [0, 0]
+    for t in range(9):
+        m_out, h_out = [0, 0], [0, 0]
+        for r in (0, 1):
+            x, y = (e[r], o[r]) if t % 2 == 0 else (o[r], e[r])
+            w = (b[t - 1] if t > 0 else 0) if r else (b[t] if t < 8 else 0)
+            out = _run(SPLIT_SHIFT[0], [x[0]] + y + [A[r][1], A[r][3], w])
+            x[0], y[:] = out[0], out[1:7]
+            y[5] = 0
+            x[:5] = _run(SPLIT_MAD[0], x[:5] + [A[r][0], A[r][2], w])[:5]
+            m = m_in[r] if r else (x[0] * n0 & MASK if t < 8 else 0)
+            y[:5] = _run(SPLIT_MAD[0], y[:5] + [P[r][1], P[r][3], m])[:5]
+            x[:5] = _run(SPLIT_MAD[0], x[:5] + [P[r][0], P[r][2], m])[:5]
+            x[2:5] = _run(SPLIT_ADD2[0], x[2:5] + [h_in[r]])[:3]
+            if r == 0 and t < 8:
+                assert x[0] == 0                    # the word rank 0 hands rank 1
+            m_out[r], h_out[r] = m, x[0]
+        if t < 8:                                   # __shfl_xor_sync(..., 1)
+            m_in, h_in = m_out[::-1], h_out[::-1]
+    w = [[e[r][0]] + _run(SPLIT_MUL[0], [0] * 6 + e[r][1:6] + o[r][:5])[:6] for r in (0, 1)]
+    top = _run(SPLIT_MUL[1], [0] * 5 + w[0][3:7] + w[1][:5])[:5]
+    return reduce_once(w[0][:3] + top, p)
+
+
+@pytest.mark.parametrize("field", sorted(FIELDS))
+def test_split_product_ptx_matches_big_integers(field):
+    """K14 and K15's product on two threads gives fe_mont_mul's value on
+    edge and seeded operands (and a chain end that drops a carry drops 0)."""
+    p = FIELDS[field]
+    n0 = -pow(p, -1, 1 << 32) % (1 << 32)
+    r_inv = pow(1 << 256, -1, p)
+    edge_words = [(1 << 224) - 1, (p >> 32) << 32, p - (1 << 32)]
+    pairs = _pairs(p, seed=7 + len(field)) + [(x, y) for x in edge_words for y in edge_words]
+    for x, y in pairs:
+        got = split_mont_mul(limbs(x), limbs(y), limbs(p), n0)
+        assert value(got) == x * y * r_inv % p, (x, y)
+
+
+def test_split_ptx_uses_only_emulated_instructions():
+    """Every asm statement of csrc/group_ntt.cu is one of the split's, and
+    this file runs each."""
+    assert GROUP_SRC.count("asm(") == 5
+    assert len(SPLIT_SHIFT) == len(SPLIT_MAD) == len(SPLIT_ADD2) == 1 and len(SPLIT_MUL) == 2
