@@ -1242,7 +1242,7 @@ def _group_ntt_rows(ctx) -> list:
     pts = mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base))
     del base
     pows = ntt.powers(fr_inv(get_domain_omega(n)), half, DEVICE)
-    tw = fk.mul(FR, pows, FR.const_raw(1, half, DEVICE))    # w^-j, canonical
+    tw = fk.from_mont(FR, pows)    # w^-j, canonical
     lo, hi = tuple(a[:half] for a in pts), tuple(a[half:] for a in pts)   # views of pts
     for a in lo:
         a[256], a[768] = 0, 0
@@ -1332,8 +1332,7 @@ def _group_ntt_key_shapes(pts) -> tuple:
     from plonkit_tpu_torch.gpu.mont import FR, to_numpy
     n = 1 << KEY_LOG2
     half = n // 2
-    tw = fk.mul(FR, ntt.powers(fr_inv(get_domain_omega(n)), half, DEVICE),
-                FR.const_raw(1, half, DEVICE))
+    tw = fk.from_mont(FR, ntt.powers(fr_inv(get_domain_omega(n)), half, DEVICE))
     lo, hi = tuple(a[:half] for a in pts), tuple(a[half:n] for a in pts)
     halves = [None if k == 1 else glv_split(k) for k in FR.from_limbs_np(to_numpy(tw))]
     k14 = _key_shape(lambda: sum(group_ntt.g1_butterfly(lo, hi, tw), ()),
@@ -1402,7 +1401,7 @@ def phase_msm(ctx, host_ctx) -> None:
     for name, rows in vectors.items():
         rows = np.ascontiguousarray(rows)
         raw = to_tensor(rows, DEVICE)
-        v = fk.mul(FR, raw, FR.const_raw(FR.r2_mod_p, n, DEVICE))     # Montgomery form
+        v = fk.to_mont(FR, raw)     # Montgomery form
         torch.cuda.synchronize()
         t = time.perf_counter()
         got = ctx.msm_vec(v)

@@ -103,7 +103,7 @@ class TorchBackend:
         return fk.mul_add(FR, a, b, c)
 
     def _scale(self, a: torch.Tensor, k: int) -> torch.Tensor:
-        return fk.mul(FR, a, self._const(k, a.shape[0]))
+        return fk.mul_row(FR, a, FR.row(k, self.device))
 
     def _suffix_sums(self, v: torch.Tensor) -> torch.Tensor:
         """S_k = sum_{j>=k} v_j (one K12 launch)."""
@@ -115,8 +115,7 @@ class TorchBackend:
         return FrVec(data)
 
     def _to_ints(self, data: torch.Tensor) -> List[int]:
-        raw = fk.mul(FR, data.contiguous(), FR.const_raw(1, data.shape[0], self.device))
-        return FR.from_limbs_np(to_numpy(raw))
+        return FR.from_limbs_np(to_numpy(fk.from_mont(FR, data.contiguous())))
 
     # -- conversions ---------------------------------------------------------
 
@@ -128,8 +127,7 @@ class TorchBackend:
 
     def from_raw_limbs(self, raw: np.ndarray) -> FrVec:
         """[N, 8] uint32 raw (canonical) limb rows -> Montgomery vector."""
-        t = to_tensor(raw, self.device)
-        return FrVec(fk.mul(FR, t, FR.const_raw(FR.r2_mod_p, t.shape[0], self.device)))
+        return FrVec(fk.to_mont(FR, to_tensor(raw, self.device)))
 
     def zeros(self, n: int) -> FrVec:
         return FrVec(torch.zeros((n, NLIMBS), dtype=torch.int32, device=self.device))
@@ -251,9 +249,8 @@ class TorchBackend:
             return MSMContext.from_device_affine(
                 *ec.affine_from_host(crs.g1_bases[:size], self.device))
         x_raw, y_raw, inf = crs.g1_limbs(size)
-        r2 = FQ.const_raw(FQ.r2_mod_p, x_raw.shape[0], self.device)
-        x = fk.mul(FQ, to_tensor(x_raw, self.device), r2)
-        y = fk.mul(FQ, to_tensor(y_raw, self.device), r2)
+        x = fk.to_mont(FQ, to_tensor(x_raw, self.device))
+        y = fk.to_mont(FQ, to_tensor(y_raw, self.device))
         return MSMContext.from_device_affine(x, y, torch.from_numpy(inf).to(self.device))
 
     def commit(self, msm_ctx, v: FrVec):
@@ -262,8 +259,7 @@ class TorchBackend:
         scalars as one [m, 32] byte array."""
         if isinstance(msm_ctx, MSMContext):
             return msm_ctx.msm_vec(v.data)
-        raw = fk.mul(FR, v.data.contiguous(), FR.const_raw(1, len(v), self.device))
-        return msm_ctx.msm_rows(to_numpy(raw).view(np.uint8))
+        return msm_ctx.msm_rows(to_numpy(fk.from_mont(FR, v.data.contiguous())).view(np.uint8))
 
     def commit_many(self, msm_ctx, vs: Sequence[FrVec]):
         """Several commitments: on a device context every MSM is queued,

@@ -1,9 +1,11 @@
 """Wrappers of the elementwise field kernels K1 mul, K2a add, K2b sub and
 K4 mul_add (csrc/field.cu), ported from plonkit_tpu/tpu/pallas_kernels.py
-mul/add/sub/mul_add, and of the field scans K12 field_scan and K13
-field_inverse (csrc/scan.cu), which carry the JAX package's scans
-(backend_jax.py prefix and suffix products, suffix sums) and
-pallas_kernels.py batch_inverse.
+mul/add/sub/mul_add; of K1 by one constant row (mul_row) and the
+Montgomery conversions over it (to_mont, from_mont), the port's one way
+into and out of Montgomery form on the device; and of the field scans K12
+field_scan and K13 field_inverse (csrc/scan.cu), which carry the JAX
+package's scans (backend_jax.py prefix and suffix products, suffix sums)
+and pallas_kernels.py batch_inverse.
 
 Operands are [N, 8] int32 contiguous tensors of one shape on one device
 (gpu/mont.py layout).  A tensor on the CPU takes the plain version from
@@ -61,6 +63,26 @@ def mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
         prod = mont.mont_mul(spec, a, b)
         return prod if out is None else out.copy_(prod)
     return _launch("mul", spec, a, b, out=out)
+
+
+def mul_row(spec: FieldSpec, a: torch.Tensor, row: torch.Tensor,
+            out: torch.Tensor = None) -> torch.Tensor:
+    """K1 of every row of a by one [1, 8] row (FieldSpec.row, r2, raw1 or
+    one).  The port's one place that makes a row's broadcast operand: K1
+    reads an [N, 8] copy of it."""
+    if row.dtype != torch.int32 or tuple(row.shape) != (1, NLIMBS):
+        raise ValueError(f"expected a [1, {NLIMBS}] int32 row, got {row.dtype} {tuple(row.shape)}")
+    return mul(spec, a, row.expand(a.shape[0], NLIMBS).contiguous(), out=out)
+
+
+def to_mont(spec: FieldSpec, raw: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """Canonical rows into Montgomery form: K1 by R^2."""
+    return mul_row(spec, raw, spec.r2(raw.device), out=out)
+
+
+def from_mont(spec: FieldSpec, m: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
+    """Montgomery rows out to canonical ones: K1 by the integer 1."""
+    return mul_row(spec, m, spec.raw1(m.device), out=out)
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -195,8 +217,7 @@ def batch_inverse_plain(spec: FieldSpec, v: torch.Tensor) -> torch.Tensor:
     x = torch.where(zero_mask, one, v)
     pre = scan_plain(spec, x, "mul")
     suf = scan_plain(spec, x, "mul", reverse=True)
-    total = spec.from_limbs_np(mont.to_numpy(
-        mont.mont_mul(spec, pre[n - 1:n].contiguous(), spec.const_raw(1, 1, v.device))))[0]
+    total = spec.from_limbs_np(mont.to_numpy(mont.from_mont(spec, pre[n - 1:n])))[0]
     pre_excl = torch.cat([one[:1], pre[:n - 1]])
     suf_excl = torch.cat([suf[1:], one[:1]])
     out = mont.mont_mul(spec, pre_excl, suf_excl)

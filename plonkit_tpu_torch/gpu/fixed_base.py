@@ -28,7 +28,7 @@ import torch
 
 from ..fields import FR_MODULUS
 from . import field_kernels as fk, msm_kernels as mk, ntt as gntt
-from .mont import FQ, FR, NLIMBS, raw_one, to_numpy, to_tensor
+from .mont import FQ, FR, NLIMBS, to_numpy, to_tensor
 
 WINDOW = 8
 NUM_WINDOWS = 256 // WINDOW
@@ -104,14 +104,13 @@ def affine_batch_to_limbs(aff):
     """(x, y, inf) affine Montgomery batch -> canonical limb rows on the
     host: (x [N, 8] uint32, y [N, 8] uint32, inf [N] bool), the layout of
     serialization.load_crs_g1_limbs.  One read-back: x and y out of
-    Montgomery form by K1 into the rows of one buffer, inf's bytes after
-    them."""
+    Montgomery form (field_kernels.from_mont) into the rows of one buffer,
+    inf's bytes after them."""
     x, y, inf = aff
     n = x.shape[0]
     packed = torch.empty((2 * n + -(-n // 32), NLIMBS), dtype=torch.int32, device=x.device)
-    one = raw_one(n, x.device)
-    fk.mul(FQ, x, one, out=packed[:n])
-    fk.mul(FQ, y, one, out=packed[n:2 * n])
+    fk.from_mont(FQ, x, out=packed[:n])
+    fk.from_mont(FQ, y, out=packed[n:2 * n])
     packed[2 * n:].view(torch.uint8).view(-1)[:n] = inf
     host = to_numpy(packed)
     return host[:n], host[n:2 * n], host[2 * n:].view(np.uint8).reshape(-1)[:n].view(bool)
@@ -127,12 +126,11 @@ def gen_crs_g1_device(power: int, tau: int = 42, device="cuda"):
     n = 1 << power
     chunk = min(n, 1 << CRS_CHUNK_LOG2)
     pows = gntt.powers(tau, chunk, device)
-    one = raw_one(chunk, device)
-    step = FR.const(pow(tau, chunk, FR_MODULUS), chunk, device)
+    step = FR.row(pow(tau, chunk, FR_MODULUS), device)
     parts = []
     for start in range(0, n, chunk):
         if start:
-            pows = fk.mul(FR, pows, step)
-        digits = _digits_of_raw(fk.mul(FR, pows, one))
+            pows = fk.mul_row(FR, pows, step)
+        digits = _digits_of_raw(fk.from_mont(FR, pows))
         parts.append(affine_batch_to_limbs(to_affine_batch(_scalar_mul_digits(digits))))
     return tuple(np.concatenate(cols) for cols in zip(*parts))

@@ -294,23 +294,23 @@ def split_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _upload_in(x, y, inf, base: int, half: int, device) -> tuple:
     """One copy to the device of all a transform reads from the host: its
-    points' x and y rows, R^2 and Montgomery one over Fq, power_table of
-    the twiddles' base (canonical powers), the bit-reversal indices (int32)
-    and inf's bytes, as one int32 buffer.  Returns the device's views:
-    (xy [2n, 8], r2 [1, 8], one [1, 8], table, rev [n], inf [n] bool)."""
+    points' x and y rows, power_table of the twiddles' base (canonical
+    powers), the bit-reversal indices (int32) and inf's bytes, as one int32
+    buffer.  Returns the device's views: (xy [2n, 8], table, rev [n], inf
+    [n] bool).  The constant rows over Fq (R^2, Montgomery one) are
+    FieldSpec's, uploaded once a process."""
     n = x.shape[0]
     table = gntt.power_table(base, half, montgomery=False)
     rows = np.concatenate([np.ascontiguousarray(x, dtype=np.uint32),
-                           np.ascontiguousarray(y, dtype=np.uint32),
-                           FQ.to_limbs_np([FQ.r2_mod_p, FQ.r_mod_p]), table]).view(np.int32)
+                           np.ascontiguousarray(y, dtype=np.uint32), table]).view(np.int32)
     flags = np.zeros(-(-n // 4) * 4, dtype=np.uint8)
     flags[:n] = np.asarray(inf, dtype=bool)
     dev = mont.upload(np.concatenate([rows.reshape(-1), gntt.bit_reversal(n).astype(np.int32),
                                       flags.view(np.int32)]), device)
     at = rows.size
     rows = dev[:at].view(-1, NLIMBS)
-    return (rows[:2 * n], rows[2 * n:2 * n + 1], rows[2 * n + 1:2 * n + 2], rows[2 * n + 2:],
-            dev[at:at + n], dev[at + n:].view(torch.uint8)[:n].view(torch.bool))
+    return (rows[:2 * n], rows[2 * n:], dev[at:at + n],
+            dev[at + n:].view(torch.uint8)[:n].view(torch.bool))
 
 
 def group_intt(x, y, inf, device="cuda"):
@@ -319,8 +319,9 @@ def group_intt(x, y, inf, device="cuda"):
     layout): out_i = (1/n) sum_j [w^-ij] P_j for the domain's root w, in the
     same layout.  For SRS points tau^j G these are L_i(tau) G.  One copy
     in (_upload_in) and one out (affine_batch_to_limbs), and nothing kept
-    from one call to the next.  The points go to Montgomery form by K1
-    into one [3, n, 8] buffer of X, Y and Z, one gather puts them in
+    from one call to the next but the fields' constant rows.  The points
+    go to Montgomery form (field_kernels.to_mont) into one [3, n, 8]
+    buffer of X, Y and Z = Montgomery one, one gather puts them in
     bit-reversed order, then the transposed Pease form of gpu/ntt.py's
     intt, over G1: k K14 stages, each reading the even and odd rows of one
     buffer and writing the halves of the other, with w^-1's canonical
@@ -332,11 +333,10 @@ def group_intt(x, y, inf, device="cuda"):
         raise ValueError(f"{n} points: the transform takes a power of two of them")
     half = n // 2
     with span("lagrange key: points in"):
-        xy, r2, one, table, rev, at_inf = _upload_in(x, y, inf, fr_inv(get_domain_omega(n)),
-                                                     half, device)
+        xy, table, rev, at_inf = _upload_in(x, y, inf, fr_inv(get_domain_omega(n)), half, device)
         pts = torch.empty((3, n, NLIMBS), dtype=torch.int32, device=device)
-        fk.mul(FQ, xy, r2.expand(2 * n, NLIMBS).contiguous(), out=pts[:2].view(2 * n, NLIMBS))
-        pts[2] = one
+        fk.to_mont(FQ, xy, out=pts[:2].view(2 * n, NLIMBS))
+        pts[2] = FQ.one(xy.device)
         pts = pts.masked_fill_(at_inf[None, :, None], 0).index_select(1, rev)
     if half:
         with span("group ntt: twiddles"):

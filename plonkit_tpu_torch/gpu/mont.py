@@ -68,28 +68,41 @@ class FieldSpec:
         inv_r = pow(self.r, -1, self.p)
         return [v * inv_r % self.p for v in self.from_limbs_np(limbs)]
 
-    def const_raw(self, value: int, n: int, device) -> torch.Tensor:
-        """[n, 8] contiguous tensor whose every row holds the limbs of
-        `value` (0 <= value < 2^256) as they are."""
-        row = to_tensor(self.to_limbs_np([value]), device)
-        return row.expand(n, NLIMBS).contiguous()
+    # -- constant rows on a device ([1, 8] int32) ----------------------------
+    # raw1, r2 and one are made once per field and device, by one upload of
+    # the three (_fixed_rows), and shared: read them, never write into them.
+    # A product by raw1 takes a row out of Montgomery form, a product by r2
+    # puts it in (gpu/field_kernels.py from_mont, to_mont).
+
+    def raw1(self, device) -> torch.Tensor:
+        """The limbs of the integer 1, as they are."""
+        return _fixed_rows(self, str(device))[0:1]
+
+    def r2(self, device) -> torch.Tensor:
+        """The limbs of R^2 mod p, as they are."""
+        return _fixed_rows(self, str(device))[1:2]
+
+    def one(self, device) -> torch.Tensor:
+        """1 in Montgomery form."""
+        return _fixed_rows(self, str(device))[2:3]
+
+    def row(self, value: int, device) -> torch.Tensor:
+        """`value` in Montgomery form, by one upload a call."""
+        return to_tensor(self.to_mont_np([value]), device)
 
     def const(self, value: int, n: int, device) -> torch.Tensor:
         """[n, 8] contiguous tensor holding `value` in Montgomery form."""
-        return self.const_raw(value % self.p * self.r_mod_p % self.p, n, device)
+        return self.row(value, device).expand(n, NLIMBS).contiguous()
 
 
 FR = FieldSpec(FR_MODULUS, 0)
 FQ = FieldSpec(FQ_MODULUS, 1)
 
 
-def raw_one(n: int, device) -> torch.Tensor:
-    """[n, 8]: every row the limbs of the integer 1 (either field's raw 1,
-    by which a Montgomery product leaves Montgomery form), made on
-    `device` with no copy from the host."""
-    one = torch.zeros((n, NLIMBS), dtype=torch.int32, device=device)
-    one[:, 0] = 1
-    return one
+@lru_cache(maxsize=None)
+def _fixed_rows(spec: FieldSpec, device: str) -> torch.Tensor:
+    """[3, 8] on `device`: the integer 1, R^2 mod p and Montgomery 1."""
+    return to_tensor(spec.to_limbs_np([1, spec.r2_mod_p, spec.r_mod_p]), device)
 
 
 def upload(arr: np.ndarray, device) -> torch.Tensor:
@@ -343,11 +356,13 @@ def butterfly(spec: FieldSpec, lo: torch.Tensor, hi: torch.Tensor, w: torch.Tens
 
 
 def to_mont(spec: FieldSpec, raw: torch.Tensor) -> torch.Tensor:
-    return mont_mul(spec, raw, spec.const_raw(spec.r2_mod_p, raw.shape[0], raw.device))
+    """raw * R mod p: the Montgomery product by R^2's row."""
+    return mont_mul(spec, raw, spec.r2(raw.device).expand(raw.shape[0], NLIMBS))
 
 
 def from_mont(spec: FieldSpec, m: torch.Tensor) -> torch.Tensor:
-    return mont_mul(spec, m, spec.const_raw(1, m.shape[0], m.device))
+    """m * R^-1 mod p: the Montgomery product by the integer 1's row."""
+    return mont_mul(spec, m, spec.raw1(m.device).expand(m.shape[0], NLIMBS))
 
 
 def mont_pow(spec: FieldSpec, base: torch.Tensor, exponent: int) -> torch.Tensor:

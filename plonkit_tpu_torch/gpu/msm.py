@@ -253,8 +253,7 @@ class MSMContext:
         """Queue steps 1-7 of the MSM of a device [N, 8] Montgomery Fr
         vector (N <= n) without synchronising: the handle is its window
         totals, which msm_vec_end or msm_vec_end_many resolve."""
-        raw = fk.mul(FR, v_mont.contiguous(), FR.const_raw(1, v_mont.shape[0], v_mont.device))
-        return self._run(raw)
+        return self._run(fk.from_mont(FR, v_mont.contiguous()))
 
     def msm_vec_end_many(self, handles) -> list:
         """Steps 8-9 for a group of handles: one K8 launch over their

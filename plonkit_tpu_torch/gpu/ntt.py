@@ -176,7 +176,7 @@ def _tables(n: int, inverse: bool, device: str):
         omega = fr_inv(omega)
     omega_pows = powers(omega, max(n // 2, 1), device)
     rev = mont.upload(bit_reversal(n), device)
-    n_inv = FR.const(fr_inv(n), 1, device)
+    n_inv = FR.row(fr_inv(n), device)
     return omega_pows, rev, n_inv
 
 
@@ -217,7 +217,7 @@ def ntt_batched(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         butterfly(FR, pairs[:, :batch], pairs[:, batch:],
                   _stage_twiddles(omega_pows, t, half, batch), out)
         y = out
-    return fk.mul(FR, y, m_inv.expand(rows, NLIMBS).contiguous()).view(m, batch, NLIMBS)
+    return fk.mul_row(FR, y, m_inv).view(m, batch, NLIMBS)
 
 
 def ntt(values: torch.Tensor) -> torch.Tensor:

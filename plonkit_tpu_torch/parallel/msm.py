@@ -67,9 +67,8 @@ class DistributedMSMContext:
         x, y = (np.zeros((b, NLIMBS), dtype=np.uint32) for _ in range(2))
         mask = np.ones(b, dtype=bool)
         x[:m], y[:m], mask[:m] = x_raw[lo:lo + m], y_raw[lo:lo + m], inf[lo:lo + m]
-        r2 = FQ.const_raw(FQ.r2_mod_p, b, mesh.device)
-        return cls.from_device_affine(mesh, fk.mul(FQ, to_tensor(x, mesh.device), r2),
-                                      fk.mul(FQ, to_tensor(y, mesh.device), r2),
+        return cls.from_device_affine(mesh, fk.to_mont(FQ, to_tensor(x, mesh.device)),
+                                      fk.to_mont(FQ, to_tensor(y, mesh.device)),
                                       torch.from_numpy(mask).to(mesh.device), size)
 
     def _init(self, mesh, x, y, inf, n_pts):

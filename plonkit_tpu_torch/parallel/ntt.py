@@ -108,5 +108,5 @@ def coset_powers(shift: int, n: int, d: int, rank: int, device: str) -> torch.Te
     b = n // d
     pows = gntt.powers(shift % R, b, device)
     if rank:
-        pows = fk.mul(FR, pows, FR.const(pow(shift, rank * b, R), b, device))
+        pows = fk.mul_row(FR, pows, FR.row(pow(shift, rank * b, R), device))
     return pows

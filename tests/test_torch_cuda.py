@@ -51,6 +51,27 @@ def test_field_kernels_match_plain(card, op):
         assert fk.launches[op] == before + 1
 
 
+def test_mont_conversions_match_plain_and_upload_once(card):
+    """fk.to_mont, fk.from_mont and fk.mul_row on the card against gpu/mont.py's
+    plain forms over Fr and Fq; once the fields' rows are on the card, a
+    second conversion waits on the card for nothing and uploads nothing."""
+    from plonkit_tpu_torch import profiling
+    for spec in (mont.FR, mont.FQ):
+        raw = rand_rows(spec, 4096, 6)             # < p: canonical rows too
+        m = fk.to_mont(spec, raw.to(card))
+        assert torch.equal(m.cpu(), mont.to_mont(spec, raw))
+        assert torch.equal(fk.from_mont(spec, m).cpu(), raw)
+        row = spec.row(12345, card)
+        assert torch.equal(fk.mul_row(spec, m, row).cpu(),
+                           mont.mont_mul(spec, m.cpu(), row.cpu().expand(4096, 8)))
+        before = profiling.counts()
+        back = fk.from_mont(spec, fk.to_mont(spec, m))
+        after = profiling.counts()
+        assert {k: after[k] - before[k] for k in ("device_waits", "h2d_bytes")} == {
+            "device_waits": 0, "h2d_bytes": 0}
+        assert torch.equal(back.cpu(), m.cpu())
+
+
 def test_butterfly_dif_matches_plain(card):
     lo, hi, w = (rand_rows(mont.FR, 2048, s).to(card) for s in (3, 4, 5))
     u, v = ntt.butterfly_dif(lo, hi, w)
@@ -650,12 +671,11 @@ def test_group_ntt_lane_groups_follow_the_launch(card, monkeypatch):
         assert sum(split) == 12
     lanes = 32 * group_ntt.SCHEDULERS_PER_SM * sms
     assert group_ntt.lane_group(lanes, sms) == 1 < group_ntt.lane_group(lanes - 1, sms)
-    r2 = mont.FQ.const_raw(mont.FQ.r2_mod_p, 2 * lanes, card)
-    base = tuple(fk.mul(mont.FQ, mont.to_tensor(c[:2 * lanes], card), r2) for c in (x, y)) \
+    base = tuple(fk.to_mont(mont.FQ, mont.to_tensor(c[:2 * lanes], card)) for c in (x, y)) \
         + (mont.FQ.const(1, 2 * lanes, card),)
     p = mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base))
     lo, hi = tuple(a[:lanes] for a in p), tuple(a[lanes:] for a in p)
-    w = fk.mul(mont.FR, ntt.powers(5, lanes, card), mont.FR.const_raw(1, lanes, card))
+    w = fk.from_mont(mont.FR, ntt.powers(5, lanes, card))
     got = group_ntt.g1_butterfly(lo, hi, w)
     assert profiling.counts()["g1_lane_groups"] == after["g1_lane_groups"]
     assert profiling.counts()["g1_split_products"] == after["g1_split_products"]
@@ -678,14 +698,12 @@ def test_group_ntt_in_place_stage_matches_plain(card, lanes, g):
     from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
     n = 2 * lanes
     x, y, _ = gen_crs_g1_device(n.bit_length() - 1, 42, card)
-    r2 = mont.FQ.const_raw(mont.FQ.r2_mod_p, n, card)
-    base = tuple(fk.mul(mont.FQ, mont.to_tensor(c, card), r2) for c in (x, y)) \
+    base = tuple(fk.to_mont(mont.FQ, mont.to_tensor(c, card)) for c in (x, y)) \
         + (mont.FQ.const(1, n, card),)
     buf = torch.stack(mk.padd(base, tuple(a.roll(1, 0).contiguous() for a in base)))  # Z != 1
     buf[:, 6] = 0                                       # lane 3's lo at infinity
     buf[:, 9] = 0                                       # lane 4's hi at infinity
-    w = fk.mul(mont.FR, ntt.powers(fr_inv(get_domain_omega(n)), lanes, card),
-               mont.raw_one(lanes, card))
+    w = fk.from_mont(mont.FR, ntt.powers(fr_inv(get_domain_omega(n)), lanes, card))
     w[5] = 0
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert group_ntt.lane_group(lanes, sms) == g

@@ -87,14 +87,51 @@ def test_plain_inverse_and_pow_match_reference(spec, ref_spec, p):
     assert same(mont.mont_pow(spec, ta, e), ref_mont.mont_pow(ref_spec, ja, e))
 
 
+@pytest.mark.parametrize("impl", [mont, fk], ids=["plain", "wrapper"])
 @pytest.mark.parametrize("spec,ref_spec,p", FIELDS, ids=IDS)
-def test_to_from_mont_match_reference(spec, ref_spec, p):
+def test_to_from_mont_match_reference(spec, ref_spec, p, impl):
+    """gpu/mont.py's plain conversions and field_kernels' (their plain
+    versions on the CPU) against the JAX package's, both ways."""
     xs = rand_elems(64, p, seed=5)
     raw_planar = ref_spec.to_limbs_np(xs)
     raw = torch.from_numpy(convert.limbs16_to_rows(raw_planar).view(np.int32))
-    m = mont.to_mont(spec, raw)
+    m = impl.to_mont(spec, raw)
     assert same(m, ref_mont.to_mont(ref_spec, jnp.asarray(raw_planar)))
-    assert torch.equal(mont.from_mont(spec, m), raw)
+    m_planar = jnp.asarray(convert.rows_to_limbs16(mont.to_numpy(m)))
+    assert same(impl.from_mont(spec, m), ref_mont.from_mont(ref_spec, m_planar))
+    assert torch.equal(impl.from_mont(spec, m), raw)
+
+
+@pytest.mark.parametrize("spec,ref_spec,p", FIELDS, ids=IDS)
+def test_fixed_rows_hold_their_values_once_a_device(spec, ref_spec, p):
+    """FieldSpec's raw 1, R^2 and Montgomery 1 rows: [1, 8] int32, their
+    values, one buffer shared by every call; row(v) and const(v, n) hold
+    v in Montgomery form."""
+    rows = (spec.raw1("cpu"), spec.r2("cpu"), spec.one("cpu"))
+    assert all(r.dtype == torch.int32 and tuple(r.shape) == (1, 8) for r in rows)
+    assert [spec.from_limbs_np(mont.to_numpy(r))[0] for r in rows] == [
+        1, spec.r * spec.r % p, spec.r % p]
+    assert spec.r2("cpu").data_ptr() == rows[1].data_ptr()
+    assert spec.from_mont_np(mont.to_numpy(spec.row(p + 5, "cpu"))) == [5]
+    assert torch.equal(spec.const(5, 3, "cpu"), spec.row(5, "cpu").expand(3, 8))
+    assert torch.equal(spec.const(1, 1, "cpu"), spec.one("cpu"))
+
+
+@pytest.mark.parametrize("spec,ref_spec,p", FIELDS, ids=IDS)
+def test_mul_row_is_mul_by_the_expanded_row(spec, ref_spec, p):
+    """fk.mul_row = fk.mul by the row repeated for every row of a (into
+    `out` too), and it takes only a [1, 8] int32 row."""
+    _, a = both(ref_spec, rand_elems(64, p, seed=9))
+    row = spec.row(rand_elems(5, p, seed=10)[0], "cpu")
+    want = fk.mul(spec, a, row.expand(64, 8).contiguous())
+    assert torch.equal(fk.mul_row(spec, a, row), want)
+    out = torch.zeros((2, 64, 8), dtype=torch.int32)
+    fk.mul_row(spec, a, row, out=out[1])
+    assert torch.equal(out[1], want) and not out[0].any()
+    for bad in (row.to(torch.int64), row[0], row.expand(2, 8).contiguous(),
+                torch.zeros((1, 16), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            fk.mul_row(spec, a, bad)
 
 
 @pytest.mark.parametrize("spec,ref_spec,p", FIELDS, ids=IDS)

@@ -111,7 +111,7 @@ def test_powers_from_one_upload_equal_the_doubling_form(n):
     assert s * t >= n and ntt.power_table(base, n).shape == (s + t, mont.NLIMBS)
     table = mont.to_tensor(ntt.power_table(base, n, montgomery=False), "cpu")
     canonical = ntt.powers_from(table, n)
-    assert torch.equal(canonical, mont.mont_mul(mont.FR, want, mont.raw_one(n, "cpu")))
+    assert torch.equal(canonical, mont.from_mont(mont.FR, want))
 
 
 def test_bit_reversal_reverses_the_index_bits():
