@@ -73,9 +73,13 @@ Phases, each printing a JSON line with its wall seconds:
    benchmark's Lagrange key, K14 on stage 0 of a 2^12-point inverse
    transform (2^11 lanes) and K15 on its 2^12 points, every lane held
    against the plain version, each row with the lane group and product
-   split (group_ntt.lane_group, product_split) its launch took.  Times
-   are CUDA events after a sleep kernel that holds the card while the
-   host queues the calls;
+   split (group_ntt.lane_group, product_split) its launch took; K16
+   g1_points_in and K17 field_powers, the transform's inputs, at 2^20
+   points and 2^19 powers and again at the key's 2^12 and 2^11, every
+   row held against the plain version (K16 on the SRS bases, every 7th
+   point at infinity, 0, 1, q-1 and q-2 planted as x).  Times are CUDA
+   events after a sleep kernel that holds the card while the host queues
+   the calls;
 4. msm: the device MSM (gpu/msm.MSMContext) over the 2^20 SRS bases
    against the native host Pippenger (backend.HostMSMContext) on four
    scalar vectors (uniform, 0/1, one constant, a single non-zero): the
@@ -333,11 +337,17 @@ SOURCES = {
     # butterflies' g1_mul, then g1_mul by 1/n)
     "K14 g1_butterfly": ("plonkit_tpu_torch/csrc/group_ntt.cu", "plonkit_tpu/api.py:99"),
     "K15 g1_scale": ("plonkit_tpu_torch/csrc/group_ntt.cu", "plonkit_tpu/api.py:95"),
+    # no TPU kernel and no code of the JAX package: the group NTT's inputs,
+    # which the port made by a chain of small launches (K16) and by a
+    # table of powers built on the host (K17)
+    "K16 g1_points_in": ("plonkit_tpu_torch/csrc/group_ntt.cu", None),
+    "K17 field_powers": ("plonkit_tpu_torch/csrc/field.cu", None),
 }
 SCAN_KERNELS = ("field_scan_mul_kernel", "field_scan_add_kernel", "field_inverse_kernel")
 BUTTERFLIES = ("K3 butterfly_dif", "K5 butterfly")
 TENSOR_CORE_NTT = ("K9 balanced_digits", "K10 dft_product", "K11 fold_redc")
-GROUP_NTT = ("K14 g1_butterfly", "K15 g1_scale")     # the Lagrange form of a key alone
+# the Lagrange form of a key alone
+GROUP_NTT = ("K14 g1_butterfly", "K15 g1_scale", "K16 g1_points_in", "K17 field_powers")
 
 
 _print_lock = threading.Lock()
@@ -1360,10 +1370,63 @@ def _key_shape(kernel, plain, lanes: int, bytes_moved: int, least: int) -> dict:
             "plain_ms": plain_ms, "bound_int32_muls": least, "bound_bytes": bytes_moved}
 
 
+def _group_ntt_input_rows(ctx) -> list:
+    """K16 g1_points_in and K17 field_powers, the inputs of the group NTT,
+    at the main path's shapes and, under key_2p12, at the benchmark's
+    Lagrange key's, every row of each launch held against the plain
+    version on the same inputs.  K16 on the SRS bases' canonical x and y
+    (2^20 points, then the first 2^12), every 7th point at infinity and
+    0, 1, q-1, q-2 planted as x in points 1-4; K17 on the 2^20 and 2^12
+    domains' w^-1, 2^19 and 2^11 powers.  K16's bound: 65 bytes read and
+    96 written a point, two products a finite point.  K17's: the least
+    work, the powers as one chain of n - 1 products, or its 32 bytes a
+    power written, the larger; beside it the kernel's own square and
+    multiply, bits(j) + popcount(j) products a power j >= 1."""
+    import torch
+    from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
+    from plonkit_tpu_torch.gpu import field_kernels as fk, group_ntt
+    from plonkit_tpu_torch.gpu.mont import FQ, FR, to_tensor
+    n = 1 << MAIN_LOG2
+    x = fk.from_mont(FQ, ctx.table[:n, :8].contiguous())
+    x[1:5] = to_tensor(FQ.to_limbs_np([0, 1, FQ.p - 1, FQ.p - 2]), DEVICE)
+    y = fk.from_mont(FQ, ctx.table[:n, 8:].contiguous())
+    inf = torch.zeros(n, dtype=torch.bool, device=DEVICE)
+    inf[::7] = True
+
+    def points_in(m: int, reps: int) -> dict:
+        xy = torch.cat([x[:m], y[:m]])
+        at_inf = inf[:m].clone()
+        return _row("K16 g1_points_in", lambda: tuple(group_ntt.g1_points_in(xy, at_inf)),
+                    lambda: tuple(group_ntt.g1_points_in_plain(xy, at_inf)), m,
+                    m * (2 * 32 + 1 + POINT_BYTES),
+                    2 * MONT_MUL_OPS * int((~at_inf).sum()), reps)
+
+    def powers(log_n: int, reps: int) -> dict:
+        m = 1 << (log_n - 1)
+        base = to_tensor(FR.to_limbs_np([fr_inv(get_domain_omega(1 << log_n))]), DEVICE)
+        own = sum(j.bit_length() + j.bit_count() for j in range(1, m)) * MONT_MUL_OPS
+        bytes_moved = 32 * (m + 1)
+        return _row("K17 field_powers", lambda: fk.field_powers(FR, base, m),
+                    lambda: fk.field_powers_plain(FR, base, m), m, bytes_moved,
+                    (m - 1) * MONT_MUL_OPS, reps,
+                    own_chain_int32_muls=own,
+                    own_chain_bound_ms=max(bytes_moved / HBM_BYTES_PER_S,
+                                           own / INT32_MUL_PER_S) * 1e3,
+                    bound_note="bound_ms: the least work, one chain of n - 1 products; "
+                               "own_chain_bound_ms: the kernel's square and multiply, "
+                               "bits(j) + popcount(j) products a power")
+
+    k16, k17 = points_in(n, 20), powers(MAIN_LOG2, 20)
+    k16["key_2p12"], k17["key_2p12"] = points_in(1 << KEY_LOG2, 20), powers(KEY_LOG2, 20)
+    for row in (k16, k17):
+        row["mismatches"] += row["key_2p12"]["mismatches"]
+    return [k16, k17]
+
+
 def phase_kernels(ctx) -> list:
     t0 = time.perf_counter()
     rows = (_field_rows() + _msm_rows(ctx) + _ntt_mxu_rows() + _scan_rows()
-            + _group_ntt_rows(ctx))
+            + _group_ntt_rows(ctx) + _group_ntt_input_rows(ctx))
     binv = _batch_inverse_record()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3),
           "batch_inverse": binv,
@@ -1491,7 +1554,9 @@ def _launch_counts() -> dict:
             "K12 field_scan": fk.launches["scan"],
             "K13 field_inverse": fk.launches["inverse"],
             "K14 g1_butterfly": group_ntt.launches["g1_butterfly"],
-            "K15 g1_scale": group_ntt.launches["g1_scale"]}
+            "K15 g1_scale": group_ntt.launches["g1_scale"],
+            "K16 g1_points_in": group_ntt.launches["g1_points_in"],
+            "K17 field_powers": fk.launches["field_powers"]}
 
 
 @contextlib.contextmanager
@@ -1529,7 +1594,8 @@ def _tampered(proof):
 
 def phase_lagrange(setup, circuit, key: str, tmp: str, proof_bytes: bytes):
     """The main circuit's Lagrange key made on the card from the 2^23 key
-    (api.crs_lagrange_form: 20 K14 stages, one K15, K12 and K13 for the
+    (api.crs_lagrange_form: one K16 and one K17 for the transform's
+    points and twiddles, 20 K14 stages, one K15, K12 and K13 for the
     affine conversion, K1) under torch.profiler, with its wall and device
     seconds and launches, written as a key file; then one prove with it
     (the prove -l path) from a copy of the setup, whose proof.bin must be
@@ -1558,7 +1624,8 @@ def phase_lagrange(setup, circuit, key: str, tmp: str, proof_bytes: bytes):
     t0 = time.perf_counter()
     same = l_setup.prove(circuit).to_bytes() == proof_bytes
     prove_s = time.perf_counter() - t0
-    want = {"K14 g1_butterfly": domain.bit_length() - 1, "K15 g1_scale": 1}
+    want = {"K14 g1_butterfly": domain.bit_length() - 1, "K15 g1_scale": 1,
+            "K16 g1_points_in": 1, "K17 field_powers": 1}
     emit({"phase": "lagrange", "domain": domain, "dump_wall_s": wall, "device_busy_s": busy,
           "device_events": len(kernels), "by_kernel": by_kernel, "save_s": save_s,
           "key_sha256": digest, "prove_l_s": prove_s, "prove_l_equals_first_proof": same,

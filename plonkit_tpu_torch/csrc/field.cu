@@ -1,4 +1,5 @@
-// Elementwise BN254 field kernels: K1 mul, K2a add, K2b sub, K4 mul_add.
+// Elementwise BN254 field kernels: K1 mul, K2a add, K2b sub, K4 mul_add;
+// and K17 field_powers.
 //
 // Replace plonkit_tpu/tpu/pallas_kernels.py `mul` (_mul_body), `add`
 // (_add_body), `sub` (_sub_body) and `mul_add` (_mul_add_body, a * b + c):
@@ -59,6 +60,38 @@ __global__ void mul_add_kernel(const uint32_t* __restrict__ a, const uint32_t* _
     store_fe(out, i, fe_add(fe_mont_mul(load_fe(a, i), load_fe(b, i), f), load_fe(c, i), f));
 }
 
+// K17: out_j = base^j mod p in canonical form for j < n, from one
+// canonical row base < p: each thread its own square and multiply,
+// left to right over j's bits, in Montgomery form (base R by one product
+// by R^2; out of it by one product by the integer 1).  It replaces no TPU
+// kernel: the port made its transforms' twiddles from a table of powers
+// built in python on the host (ntt.power_table) and one K1; here they are
+// made from one uploaded row.  Each thread runs up to 2 log2(n) + 1
+// products against 32 bytes written, so at the Lagrange key's 2^11 powers
+// (one warp a scheduler at most, in blocks of kPowersThreads) its time is
+// one thread's chain of ~22 products; at 2^19 the card's multiply rate.
+constexpr int kPowersThreads = 64;
+
+__global__ void __launch_bounds__(kPowersThreads)
+powers_kernel(const uint32_t* __restrict__ base, uint32_t* __restrict__ out, int64_t n, Fe r2,
+              FieldParams f) {
+    const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    Fe raw1 = {};
+    raw1.v[0] = 1;
+    Fe acc = raw1;
+    if (j) {
+        const Fe b = fe_mont_mul(load_fe(base, 0), r2, f);
+        acc = b;
+        for (int k = 62 - __clzll(j); k >= 0; k--) {
+            acc = fe_mont_mul(acc, acc, f);
+            if ((j >> k) & 1) acc = fe_mont_mul(acc, b, f);
+        }
+        acc = fe_mont_mul(acc, raw1, f);
+    }
+    store_fe(out, j, acc);
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, const void* a, const void* b, void* out, long long n,
            int field, void* stream) {
@@ -97,5 +130,20 @@ extern "C" int plonkit_field_mul_add(const void* a, const void* b, const void* c
     mul_add_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (const uint32_t*)c, (uint32_t*)out,
         (int64_t)n, f);
+    return (int)cudaGetLastError();
+}
+
+// K17: base one canonical row below p; out n rows; r2: host words of R^2
+// mod p (mont.FieldSpec.words)
+extern "C" int plonkit_field_powers(const void* base, void* out, long long n, int field,
+                                    const void* r2, void* stream) {
+    FieldParams f;
+    if (!field_params(field, &f) || n < 0 || r2 == nullptr) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    Fe c;
+    for (int j = 0; j < 8; j++) c.v[j] = ((const uint32_t*)r2)[j];
+    const long long blocks = (n + kPowersThreads - 1) / kPowersThreads;
+    powers_kernel<<<(unsigned)blocks, kPowersThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)base, (uint32_t*)out, (int64_t)n, c, f);
     return (int)cudaGetLastError();
 }

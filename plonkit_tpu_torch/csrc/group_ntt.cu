@@ -1,7 +1,7 @@
 // The G1 group NTT's kernels over BN254 (Fq, Jacobian, ec.cuh): K14
-// g1_butterfly and K15 g1_scale.  gpu/group_ntt.py drives them (the
-// Lagrange form of an SRS, api.crs_lagrange_form) and holds their plain
-// PyTorch versions.
+// g1_butterfly, K15 g1_scale and K16 g1_points_in.  gpu/group_ntt.py
+// drives them (the Lagrange form of an SRS, api.crs_lagrange_form) and
+// holds their plain PyTorch versions.
 //
 // They replace no TPU kernel: the JAX package runs its group NTT in host
 // python (plonkit_tpu/api.py:99 _group_ntt, one python g1_mul a
@@ -728,6 +728,36 @@ split_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
     if (live && g.srank == 0) store_fe(out, i, r);
 }
 
+// K16: the inverse transform's input from the key's uploaded rows, one
+// thread a point.  Point i, canonical x and y limbs and its byte of inf,
+// becomes the Jacobian (x R, y R, R) mod q, or all zero where inf is set,
+// at row rev(i) of each of X, Y and Z, n rows apart in `out` ([3, n, 8]),
+// rev(i) being i with its log2(n) bits reversed: the bit-reversal gather
+// that the transposed Pease form starts from.  x R is one Montgomery
+// product by R^2, as K1's to_mont.  It replaces no TPU kernel: it is the
+// port's own fusion of the chain of small launches that made the same
+// buffer (to_mont's broadcast copy and K1, the Z fill, the mask, the
+// gather), which left the card waiting on the host at the start of every
+// key.  Bound by bytes: 65 read and 96 written a point, so at the 2^12
+// key's size its time is launch latency and two products.
+__global__ void __launch_bounds__(kThreads)
+g1_points_in_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                    const uint8_t* __restrict__ inf, uint32_t* __restrict__ out, int64_t n,
+                    int bits, Fe r2, Fe one, FieldParams f) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int64_t at = bits ? (int64_t)(__brev((uint32_t)i) >> (32 - bits)) : 0;
+    Fe px = fe_zero(), py = fe_zero(), pz = fe_zero();
+    if (!inf[i]) {
+        px = fe_mont_mul(load_fe(x, i), r2, f);
+        py = fe_mont_mul(load_fe(y, i), r2, f);
+        pz = one;
+    }
+    store_fe(out, at, px);
+    store_fe(out + 8 * n, at, py);
+    store_fe(out + 16 * n, at, pz);
+}
+
 // launch(std::integral_constant<int, G>) for group = G in {1, 2, 4}
 template <typename Launch>
 int with_group(int group, Launch&& launch) {
@@ -820,5 +850,29 @@ extern "C" int plonkit_fq_split_mul(const void* a, const void* b, void* out, lon
     if (n == 0) return (int)cudaGetLastError();
     split_mul_kernel<<<blocks_of(n, 2), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (int64_t)n, f);
+    return (int)cudaGetLastError();
+}
+
+// K16: x, y: n canonical rows each; inf: n bytes; out: [3, n, 8]; n a power
+// of two up to 2^32; r2, one: host words of R^2 mod q and R mod q
+// (mont.FieldSpec.words)
+extern "C" int plonkit_g1_points_in(const void* x, const void* y, const void* inf, void* out,
+                                    long long n, const void* r2_words, const void* one_words,
+                                    void* stream) {
+    FieldParams f;
+    if (!fq_params(&f) || n < 0 || n > (1ll << 32) || (n & (n - 1)) || r2_words == nullptr ||
+        one_words == nullptr)
+        return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    int bits = 0;
+    while ((1ll << bits) < n) bits++;
+    Fe r2, one;
+    for (int j = 0; j < 8; j++) {
+        r2.v[j] = ((const uint32_t*)r2_words)[j];
+        one.v[j] = ((const uint32_t*)one_words)[j];
+    }
+    g1_points_in_kernel<<<blocks_of(n, 1), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (const uint8_t*)inf, (uint32_t*)out, (int64_t)n,
+        bits, r2, one, f);
     return (int)cudaGetLastError();
 }

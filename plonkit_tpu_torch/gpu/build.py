@@ -31,7 +31,8 @@ _ARGTYPES = {
     "field": dict({name: [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
                    for name in ("plonkit_field_mul", "plonkit_field_add",
                                 "plonkit_field_sub")},
-                  plonkit_field_mul_add=[_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]),
+                  plonkit_field_mul_add=[_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+                  plonkit_field_powers=[_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P]),
     "ntt": {"plonkit_butterfly_dif":
             [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
             "plonkit_butterfly":
@@ -51,7 +52,8 @@ _ARGTYPES = {
     "group_ntt": {"plonkit_g1_butterfly": [_P] * 13 + [ctypes.c_longlong] * 2
                   + [ctypes.c_int] * 2 + [_P],
                   "plonkit_g1_scale": [_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P],
-                  "plonkit_fq_split_mul": [_P] * 3 + [ctypes.c_longlong, _P]},
+                  "plonkit_fq_split_mul": [_P] * 3 + [ctypes.c_longlong, _P],
+                  "plonkit_g1_points_in": [_P] * 4 + [ctypes.c_longlong] + [_P] * 3},
 }
 
 _libs = {}

@@ -2,7 +2,8 @@
 K4 mul_add (csrc/field.cu), ported from plonkit_tpu/tpu/pallas_kernels.py
 mul/add/sub/mul_add; of K1 by one constant row (mul_row) and the
 Montgomery conversions over it (to_mont, from_mont), the port's one way
-into and out of Montgomery form on the device; and of the field scans K12
+into and out of Montgomery form on the device; of K17 field_powers (the
+canonical powers of one row); and of the field scans K12
 field_scan and K13 field_inverse (csrc/scan.cu), which carry the JAX
 package's scans (backend_jax.py prefix and suffix products, suffix sums)
 and pallas_kernels.py batch_inverse.
@@ -19,7 +20,8 @@ from ..profiling import register_launches
 from . import build, mont
 from .mont import NLIMBS, FieldSpec
 
-launches = {"mul": 0, "add": 0, "sub": 0, "mul_add": 0, "scan": 0, "inverse": 0}
+launches = {"mul": 0, "add": 0, "sub": 0, "mul_add": 0, "scan": 0, "inverse": 0,
+            "field_powers": 0}
 register_launches(launches)
 
 
@@ -36,6 +38,11 @@ def check_operands(*ts: torch.Tensor) -> None:
             raise ValueError("operands must be contiguous")
         if t.is_cuda and t.data_ptr() % 16:
             raise ValueError("operand rows must be 16-byte aligned")
+
+
+def _check_row(row: torch.Tensor) -> None:
+    if row.dtype != torch.int32 or tuple(row.shape) != (1, NLIMBS):
+        raise ValueError(f"expected a [1, {NLIMBS}] int32 row, got {row.dtype} {tuple(row.shape)}")
 
 
 def stream_ptr(t: torch.Tensor) -> int:
@@ -70,8 +77,7 @@ def mul_row(spec: FieldSpec, a: torch.Tensor, row: torch.Tensor,
     """K1 of every row of a by one [1, 8] row (FieldSpec.row, r2, raw1 or
     one).  The port's one place that makes a row's broadcast operand: K1
     reads an [N, 8] copy of it."""
-    if row.dtype != torch.int32 or tuple(row.shape) != (1, NLIMBS):
-        raise ValueError(f"expected a [1, {NLIMBS}] int32 row, got {row.dtype} {tuple(row.shape)}")
+    _check_row(row)
     return mul(spec, a, row.expand(a.shape[0], NLIMBS).contiguous(), out=out)
 
 
@@ -83,6 +89,40 @@ def to_mont(spec: FieldSpec, raw: torch.Tensor, out: torch.Tensor = None) -> tor
 def from_mont(spec: FieldSpec, m: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
     """Montgomery rows out to canonical ones: K1 by the integer 1."""
     return mul_row(spec, m, spec.raw1(m.device), out=out)
+
+
+def field_powers_plain(spec: FieldSpec, base: torch.Tensor, n: int) -> torch.Tensor:
+    """K17's plain version: square and multiply over all j < n at once,
+    right to left over j's bits, in Montgomery form."""
+    _check_row(base)
+    if not n:
+        return torch.empty((0, NLIMBS), dtype=torch.int32, device=base.device)
+    j = torch.arange(n, device=base.device)
+    acc = spec.one(base.device).expand(n, NLIMBS)
+    sq = mont.to_mont(spec, base)
+    for k in range((n - 1).bit_length()):
+        hit = ((j >> k) & 1).bool()[:, None]
+        acc = torch.where(hit, mont.mont_mul(spec, acc, sq.expand(n, NLIMBS)), acc)
+        sq = mont.mont_mul(spec, sq, sq)
+    return mont.from_mont(spec, acc.contiguous())
+
+
+def field_powers(spec: FieldSpec, base: torch.Tensor, n: int) -> torch.Tensor:
+    """K17: [n, 8] canonical rows base^j for j < n, from one canonical [1,
+    8] row base below p, on base's device: one launch, each thread its own
+    square and multiply over j's bits."""
+    _check_row(base)
+    if not base.is_cuda:
+        return field_powers_plain(spec, base, n)
+    if base.data_ptr() % 16:
+        raise ValueError("operand rows must be 16-byte aligned")
+    out = torch.empty((n, NLIMBS), dtype=torch.int32, device=base.device)
+    if n:
+        build.check(build.load("field").plonkit_field_powers(
+            base.data_ptr(), out.data_ptr(), n, spec.kernel_id, spec.words[1].ctypes.data,
+            stream_ptr(base)), "K17 field_powers")
+        launches["field_powers"] += 1
+    return out
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""The G1 group NTT: wrappers of K14 g1_butterfly and K15 g1_scale
-(csrc/group_ntt.cu), each beside its plain PyTorch version, and group_intt,
-the inverse transform over SRS points that api.crs_lagrange_form runs to
-make the Lagrange form of a key.
+"""The G1 group NTT: wrappers of K14 g1_butterfly, K15 g1_scale and K16
+g1_points_in (csrc/group_ntt.cu), each beside its plain PyTorch version,
+and group_intt, the inverse transform over SRS points that
+api.crs_lagrange_form runs to make the Lagrange form of a key.
 
 No TPU kernel stands behind them: the JAX package's group NTT is host
 python (plonkit_tpu/api.py:99 _group_ntt, one g1_mul a butterfly), which
@@ -43,7 +43,7 @@ from .field_kernels import check_operands, stream_ptr
 from .fixed_base import affine_batch_to_limbs, to_affine_batch
 from .mont import FQ, FR, NLIMBS, to_numpy
 
-launches = {"g1_butterfly": 0, "g1_scale": 0}
+launches = {"g1_butterfly": 0, "g1_scale": 0, "g1_points_in": 0}
 register_launches(launches)
 count("g1_lane_groups", 0)
 count("g1_split_products", 0)
@@ -290,27 +290,70 @@ def split_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# -- K16 ---------------------------------------------------------------------
+
+def _points_in_operands(xy: torch.Tensor, inf: torch.Tensor) -> int:
+    """n of a K16 call: xy [2n, 8] int32 (n x rows, then n y rows), inf [n]
+    bool beside it, n a power of two."""
+    check_operands(xy)
+    n = xy.shape[0] // 2
+    if (n < 1 or n & (n - 1) or xy.shape[0] != 2 * n or inf.dtype != torch.bool
+            or inf.shape != (n,) or inf.device != xy.device or not inf.is_contiguous()):
+        raise ValueError("K16 takes [2n, 8] int32 x and y rows and an [n] bool inf beside "
+                         "them, n a power of two")
+    return n
+
+
+def g1_points_in_plain(xy: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """K16's plain version: the points in Montgomery form (gpu/mont.py's
+    to_mont), Z one, all zero where inf is set, point i scattered to row
+    rev(i) (ntt.bit_reversal) as each of K16's threads writes it."""
+    n = _points_in_operands(xy, inf)
+    keep = ~inf[:, None]
+    pts = torch.zeros((3, n, NLIMBS), dtype=torch.int32, device=xy.device)
+    xy_m = mont.to_mont(FQ, xy)
+    for c, v in enumerate((xy_m[:n], xy_m[n:], FQ.one(xy.device).expand(n, NLIMBS))):
+        pts[c] = torch.where(keep, v, 0)
+    out = torch.empty_like(pts)
+    out[:, torch.from_numpy(gntt.bit_reversal(n)).to(xy.device)] = pts
+    return out
+
+
+def g1_points_in(xy: torch.Tensor, inf: torch.Tensor) -> torch.Tensor:
+    """K16: the [3, n, 8] Jacobian buffer group_intt's first stage reads,
+    from the n points' canonical x and y rows (xy [2n, 8], x then y) and
+    inf [n] bool: X = x R, Y = y R, Z = R mod q (Montgomery form), all zero
+    where inf is set, point i at row i with its log2(n) bits reversed.  One
+    launch."""
+    if not xy.is_cuda:
+        return g1_points_in_plain(xy, inf)
+    n = _points_in_operands(xy, inf)
+    out = torch.empty((3, n, NLIMBS), dtype=torch.int32, device=xy.device)
+    build.check(build.load("group_ntt").plonkit_g1_points_in(
+        xy.data_ptr(), xy[n:].data_ptr(), inf.data_ptr(), out.data_ptr(), n,
+        FQ.words[1].ctypes.data, FQ.words[2].ctypes.data, stream_ptr(xy)), "K16 g1_points_in")
+    launches["g1_points_in"] += 1
+    return out
+
+
 # -- the transform -------------------------------------------------------------
 
-def _upload_in(x, y, inf, base: int, half: int, device) -> tuple:
+def _upload_in(x, y, inf, base: int, device) -> tuple:
     """One copy to the device of all a transform reads from the host: its
-    points' x and y rows, power_table of the twiddles' base (canonical
-    powers), the bit-reversal indices (int32) and inf's bytes, as one int32
-    buffer.  Returns the device's views: (xy [2n, 8], table, rev [n], inf
-    [n] bool).  The constant rows over Fq (R^2, Montgomery one) are
-    FieldSpec's, uploaded once a process."""
+    points' x and y rows (canonical Fq), one canonical Fr row of the
+    twiddles' base and inf's bytes, as one int32 buffer.  Returns the
+    device's views: (xy [2n, 8], base [1, 8], inf [n] bool)."""
     n = x.shape[0]
-    table = gntt.power_table(base, half, montgomery=False)
-    rows = np.concatenate([np.ascontiguousarray(x, dtype=np.uint32),
-                           np.ascontiguousarray(y, dtype=np.uint32), table]).view(np.int32)
-    flags = np.zeros(-(-n // 4) * 4, dtype=np.uint8)
-    flags[:n] = np.asarray(inf, dtype=bool)
-    dev = mont.upload(np.concatenate([rows.reshape(-1), gntt.bit_reversal(n).astype(np.int32),
-                                      flags.view(np.int32)]), device)
-    at = rows.size
-    rows = dev[:at].view(-1, NLIMBS)
-    return (rows[:2 * n], rows[2 * n:], dev[at:at + n],
-            dev[at + n:].view(torch.uint8)[:n].view(torch.bool))
+    rows = 2 * n + 1
+    buf = np.empty(rows * NLIMBS + -(-n // 4), dtype=np.uint32)
+    limbs = buf[:rows * NLIMBS].reshape(rows, NLIMBS)
+    limbs[:n], limbs[n:2 * n], limbs[2 * n] = x, y, FR.to_limbs_np([base])[0]
+    flags = buf[rows * NLIMBS:].view(np.uint8)
+    flags[:n], flags[n:] = inf, 0
+    dev = mont.upload(buf.view(np.int32), device)
+    limbs = dev[:rows * NLIMBS].view(rows, NLIMBS)
+    return (limbs[:2 * n], limbs[2 * n:],
+            dev[rows * NLIMBS:].view(torch.uint8)[:n].view(torch.bool))
 
 
 def group_intt(x, y, inf, device="cuda"):
@@ -319,13 +362,13 @@ def group_intt(x, y, inf, device="cuda"):
     layout): out_i = (1/n) sum_j [w^-ij] P_j for the domain's root w, in the
     same layout.  For SRS points tau^j G these are L_i(tau) G.  One copy
     in (_upload_in) and one out (affine_batch_to_limbs), and nothing kept
-    from one call to the next but the fields' constant rows.  The points
-    go to Montgomery form (field_kernels.to_mont) into one [3, n, 8]
-    buffer of X, Y and Z = Montgomery one, one gather puts them in
-    bit-reversed order, then the transposed Pease form of gpu/ntt.py's
-    intt, over G1: k K14 stages, each reading the even and odd rows of one
-    buffer and writing the halves of the other, with w^-1's canonical
-    stage twiddles (ntt.powers_from), one K15 by 1/n, and the affine
+    from one call to the next but the fields' constant rows.  K16 makes
+    the [3, n, 8] Jacobian buffer in Montgomery form and bit-reversed order
+    from the uploaded rows, K17 (field_kernels.field_powers) the canonical
+    powers w^-j, j < n/2, from the uploaded w^-1; then the transposed Pease
+    form of gpu/ntt.py's intt, over G1: k K14 stages, each reading the even
+    and odd rows of one buffer and writing the halves of the other, with
+    the stage twiddles of those powers, one K15 by 1/n, and the affine
     conversion of gpu/fixed_base.py (two K12 and one K13 for the inverse
     of Z, K1)."""
     n = x.shape[0]
@@ -333,14 +376,11 @@ def group_intt(x, y, inf, device="cuda"):
         raise ValueError(f"{n} points: the transform takes a power of two of them")
     half = n // 2
     with span("lagrange key: points in"):
-        xy, table, rev, at_inf = _upload_in(x, y, inf, fr_inv(get_domain_omega(n)), half, device)
-        pts = torch.empty((3, n, NLIMBS), dtype=torch.int32, device=device)
-        fk.to_mont(FQ, xy, out=pts[:2].view(2 * n, NLIMBS))
-        pts[2] = FQ.one(xy.device)
-        pts = pts.masked_fill_(at_inf[None, :, None], 0).index_select(1, rev)
+        xy, w_inv, at_inf = _upload_in(x, y, inf, fr_inv(get_domain_omega(n)), device)
+        pts = g1_points_in(xy, at_inf)
     if half:
         with span("group ntt: twiddles"):
-            tw = gntt.powers_from(table, half)
+            tw = fk.field_powers(FR, w_inv, half)
         with span("group ntt: butterflies"):
             spare = torch.empty_like(pts)
             for t in reversed(range(n.bit_length() - 1)):

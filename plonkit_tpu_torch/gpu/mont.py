@@ -46,6 +46,9 @@ class FieldSpec:
         self.n0_16 = (-pow(p, -1, 1 << 16)) % (1 << 16)   # plain CIOS
         self.p32 = _limbs(p, 32, NLIMBS)
         self.p16 = _limbs(p, 16, _NL16)
+        # the rows raw1, r2 and one (below) as host words, [3, 8] uint32:
+        # a kernel that takes a constant by value reads its row's pointer
+        self.words = self.to_limbs_np([1, self.r2_mod_p, self.r_mod_p])
 
     # -- host conversions (numpy, no per-limb python loops) ----------------
 
@@ -102,7 +105,7 @@ FQ = FieldSpec(FQ_MODULUS, 1)
 @lru_cache(maxsize=None)
 def _fixed_rows(spec: FieldSpec, device: str) -> torch.Tensor:
     """[3, 8] on `device`: the integer 1, R^2 mod p and Montgomery 1."""
-    return to_tensor(spec.to_limbs_np([1, spec.r2_mod_p, spec.r_mod_p]), device)
+    return to_tensor(spec.words.copy(), device)
 
 
 def upload(arr: np.ndarray, device) -> torch.Tensor:

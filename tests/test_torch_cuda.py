@@ -575,7 +575,8 @@ def test_group_ntt_kernels_match_plain(card):
     assert all(torch.equal(g, x) for g, x in zip(group_ntt.g1_scale(hi, 2 ** 255 + 3),
                                                   group_ntt.g1_scale_plain(hi, 2 ** 255 + 3)))
     assert group_ntt.launches == {"g1_butterfly": before["g1_butterfly"] + 1,
-                                  "g1_scale": before["g1_scale"] + 1}
+                                  "g1_scale": before["g1_scale"] + 1,
+                                  "g1_points_in": before["g1_points_in"]}
     x, y = (mont.FQ.to_limbs_np([q[c] for q in pts[:n]]) for c in (0, 1))
     inf = np.zeros(n, dtype=bool)
     on_card = group_ntt.group_intt(x, y, inf, card)
@@ -791,6 +792,56 @@ def test_lagrange_key_h2d_bytes_are_the_traced_copies(monomial_key_2p12, tmp_pat
               and e.get("cat") == "gpu_memcpy" and e["name"].startswith("Memcpy HtoD")]
     print(f"h2d_bytes {counted}; traced: {len(copies)} HtoD copies, {sum(copies)} bytes")
     assert copies and counted == sum(copies)
+
+
+def test_lagrange_key_counts_one_upload_and_one_launch_each_of_k16_k17(monomial_key_2p12):
+    """One 2^12 key: one upload of 266,272 bytes (the points' x and y rows,
+    the root w^-1, inf's bytes), 2 device waits (the upload, the
+    read-back), one K16 g1_points_in and one K17 field_powers."""
+    from plonkit_tpu_torch import profiling
+    from plonkit_tpu_torch.api import crs_lagrange_form
+    keys = ("h2d_bytes", "device_waits", "launches.g1_points_in", "launches.field_powers")
+    before = profiling.counts()
+    crs_lagrange_form(monomial_key_2p12, 1 << 12)
+    after = profiling.counts()
+    assert {k: after[k] - before[k] for k in keys} == dict(zip(keys, (266_272, 2, 1, 1)))
+
+
+@pytest.mark.parametrize("log_n", [12, 20])
+def test_points_in_and_field_powers_match_plain(card, log_n):
+    """K16 g1_points_in on 2^log_n SRS points (every 7th at infinity) and
+    K17 field_powers of the 2^log_n domain's w^-1 (2^(log_n - 1) powers)
+    against their plain versions run on the card, every row limb for limb;
+    and against the chains they replace, K16 on a sample of 4,096 points:
+    to_mont, Z = one, the mask, the gather by ntt.bit_reversal; K17 on
+    power_table's canonical powers."""
+    from plonkit_tpu_torch.fields import fr_inv, get_domain_omega
+    from plonkit_tpu_torch.gpu import group_ntt
+    from plonkit_tpu_torch.gpu.fixed_base import gen_crs_g1_device
+    n = 1 << log_n
+    x, y, inf = gen_crs_g1_device(log_n, 42, card)
+    inf = np.asarray(inf, dtype=bool).copy()
+    inf[::7] = True
+    base = fr_inv(get_domain_omega(n))
+    xy, root, at_inf = group_ntt._upload_in(x, y, inf, base, card)
+    before = (group_ntt.launches["g1_points_in"], fk.launches["field_powers"])
+    pts = group_ntt.g1_points_in(xy, at_inf)
+    tw = fk.field_powers(mont.FR, root, n // 2)
+    assert (group_ntt.launches["g1_points_in"], fk.launches["field_powers"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(pts, group_ntt.g1_points_in_plain(xy, at_inf))
+    assert torch.equal(tw, fk.field_powers_plain(mont.FR, root, n // 2))
+    at = np.random.default_rng(log_n).choice(n, size=min(n, 4096), replace=False)
+    src = ntt.bit_reversal(n)[at]                     # row at of the buffer holds point src
+    k = len(at)
+    want = fk.to_mont(mont.FQ, torch.cat([xy[:n][torch.from_numpy(src).to(card)],
+                                          xy[n:][torch.from_numpy(src).to(card)]]))
+    keep = torch.from_numpy(~inf[src]).to(card)[:, None]
+    one = mont.FQ.one(card).expand(k, mont.NLIMBS)
+    for c, v in enumerate((want[:k], want[k:], one)):
+        assert torch.equal(pts[c][torch.from_numpy(at).to(card)], torch.where(keep, v, 0))
+    table = mont.to_tensor(ntt.power_table(base, n // 2, montgomery=False), card)
+    assert torch.equal(tw, ntt.powers_from(table, n // 2))
 
 
 def test_lagrange_key_at_a_fresh_domain_counts_the_same_twice(monomial_key_2p12):

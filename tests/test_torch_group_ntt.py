@@ -189,6 +189,71 @@ def test_plain_scale_equals_host_curve(s):
     assert got == [g1_mul(p, s % R) if p is not None else None for p in pts]
 
 
+def _points_in_chain(xy, inf):
+    """The points-in chain group_intt ran before K16: to_mont into one
+    [3, n, 8] buffer, the Z fill with Montgomery one, masked_fill_ where
+    inf is set, index_select by ntt.bit_reversal."""
+    from plonkit_tpu_torch.gpu import field_kernels as fk, ntt
+    from plonkit_tpu_torch.gpu.mont import FQ, NLIMBS
+    n = inf.shape[0]
+    pts = torch.empty((3, n, NLIMBS), dtype=torch.int32)
+    fk.to_mont(FQ, xy, out=pts[:2].view(2 * n, NLIMBS))
+    pts[2] = FQ.one("cpu")
+    rev = torch.from_numpy(ntt.bit_reversal(n))
+    return pts.masked_fill_(inf[None, :, None], 0).index_select(1, rev)
+
+
+@pytest.mark.parametrize("at_inf", [False, True])
+@pytest.mark.parametrize("log_n", range(9))
+def test_plain_points_in_equals_the_chain(log_n, at_inf):
+    """K16's plain version (group_ntt.g1_points_in on CPU rows) gives the
+    chain's [3, n, 8] buffer limb for limb, with no launch: seeded
+    canonical x and y, 0 and q - 1 among them, and with at_inf every third
+    point at infinity."""
+    from plonkit_tpu_torch.gpu.mont import FQ
+    n = 1 << log_n
+    rng = np.random.default_rng(SEED + log_n)
+    vals = [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(2 * n)]
+    vals[0], vals[-1] = 0, Q - 1
+    xy = to_tensor(FQ.to_limbs_np(vals), "cpu")
+    inf = torch.zeros(n, dtype=torch.bool)
+    if at_inf:
+        inf[::3] = True
+    before = dict(group_ntt.launches)
+    got = group_ntt.g1_points_in(xy, inf)
+    assert group_ntt.launches == before
+    assert torch.equal(got, _points_in_chain(xy, inf))
+
+
+@pytest.mark.parametrize("log_n", [0, 4, 12])
+def test_upload_in_is_one_buffer_of_points_root_and_flags(log_n):
+    """_upload_in's one buffer holds the x and y rows, the canonical root
+    and inf's bytes, padded to whole words, and nothing else: 266,272
+    bytes at 2^12."""
+    n = 1 << log_n
+    rng = np.random.default_rng(SEED + 40 + log_n)
+    x, y = (rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint32) for _ in range(2))
+    inf = rng.random(n) < 0.25
+    base = fr_inv(get_domain_omega(max(n, 2)))
+    xy, root, at_inf = group_ntt._upload_in(x, y, inf, base, "cpu")
+    assert xy.untyped_storage().nbytes() == (2 * n + 1) * 32 + -(-n // 4) * 4
+    if n == 1 << 12:
+        assert xy.untyped_storage().nbytes() == 266_272
+    assert np.array_equal(xy.numpy().view(np.uint32), np.concatenate([x, y]))
+    assert FR.from_limbs_np(root.numpy().view(np.uint32)) == [base]
+    assert at_inf.dtype == torch.bool and np.array_equal(at_inf.numpy(), inf)
+
+
+def test_points_in_refuses_what_it_cannot_read():
+    rows = torch.zeros((6, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        group_ntt.g1_points_in(rows, torch.zeros(3, dtype=torch.bool))       # n = 3
+    with pytest.raises(ValueError):
+        group_ntt.g1_points_in(rows[:4], torch.zeros(4, dtype=torch.bool))   # 2 rows for 4
+    with pytest.raises(ValueError):
+        group_ntt.g1_points_in(rows[:4], torch.zeros(2, dtype=torch.uint8))
+
+
 def test_glv_beta_lambda_match():
     """phi(G) = (beta G.x, G.y) is [lambda]G, and both are primitive cube
     roots of unity; the basis vectors are in the lattice, of determinant r

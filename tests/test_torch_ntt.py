@@ -114,6 +114,21 @@ def test_powers_from_one_upload_equal_the_doubling_form(n):
     assert torch.equal(canonical, mont.from_mont(mont.FR, want))
 
 
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 4, 5, 8, 37, 64, 100, 2048])
+def test_field_powers_plain_equals_the_power_table(n):
+    """K17's plain version (field_kernels.field_powers on a CPU row) gives
+    the canonical powers that power_table with montgomery=False and
+    powers_from made, bit for bit, with no launch."""
+    from plonkit_tpu_torch.gpu import field_kernels as fk
+    base = fr_inv(get_domain_omega(4096))
+    want = ntt.powers_from(mont.to_tensor(ntt.power_table(base, n, montgomery=False), "cpu"), n)
+    row = mont.to_tensor(mont.FR.to_limbs_np([base]), "cpu")
+    before = dict(fk.launches)
+    got = fk.field_powers(mont.FR, row, n)
+    assert fk.launches == before
+    assert got.shape == (n, mont.NLIMBS) and torch.equal(got, want)
+
+
 def test_bit_reversal_reverses_the_index_bits():
     for bits in range(18):
         n = 1 << bits

@@ -312,7 +312,7 @@ def test_counts_are_cumulative_and_list_every_launch(monkeypatch):
         == (96, 2)
     launches = {f"launches.{k}": v for m in (field_kernels, group_ntt, msm_kernels, ntt, ntt_mxu)
                 for k, v in m.launches.items()}
-    assert len(launches) == 18 and {k: got[k] for k in launches} == launches
+    assert len(launches) == 20 and {k: got[k] for k in launches} == launches
     assert set(got) == {"device_waits", "h2d_bytes", "g1_lane_groups",
                         "g1_split_products"} | set(launches)
 
