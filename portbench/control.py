@@ -27,6 +27,7 @@ def main(argv=None) -> int:
         r = run_cell(bench, args.workload, seed, args.seconds, False, t_start=t0, control=True)
         print(json.dumps({"workload": args.workload, "seed": seed, "control": True,
                           "correct": r["correct"], "attempted": r["attempted"],
+                          "judged": r["host"]["judged"],
                           "checks": r["checks"], "errors": r["errors"],
                           "seconds": r["seconds"]}), flush=True)
     found = forbidden_modules()

@@ -127,6 +127,49 @@ def _steal_s():
         return None
 
 
+def _read(path: str):
+    """A file's text, stripped, or None where it cannot be read."""
+    try:
+        with open(path) as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
+def card_bus_id(index: int = 0):
+    """The card's PCI address as /sys/bus/pci/devices names it
+    ("0000:1b:00.0"), from torch's device properties, or None."""
+    import torch
+    p = torch.cuda.get_device_properties(index)
+    ids = [getattr(p, f"pci_{k}_id", None) for k in ("domain", "bus", "device")]
+    return None if None in ids else "{:04x}:{:02x}:{:02x}.0".format(*ids)
+
+
+def placement(bus_id) -> dict:
+    """Where the process sits, read only: the CPUs it may run on
+    (sched_getaffinity) and the MHz of the first of them (cpufreq, else
+    /proc/cpuinfo), the card's PCI address, its NUMA node and the CPUs
+    local to it (/sys/bus/pci/devices/<address>/numa_node, local_cpulist;
+    -1 is the kernel's "no node").  None where the machine has no answer."""
+    allowed = sorted(os.sched_getaffinity(0))
+    mhz = _read(f"/sys/devices/system/cpu/cpu{allowed[0]}/cpufreq/scaling_cur_freq")
+    if mhz is not None:
+        mhz = int(mhz) / 1000
+    else:
+        processor = None
+        for line in (_read("/proc/cpuinfo") or "").splitlines():
+            key, _, value = (part.strip() for part in line.partition(":"))
+            if key == "processor":
+                processor = value
+            elif key == "cpu MHz" and processor == str(allowed[0]):
+                mhz = float(value)
+    card = f"/sys/bus/pci/devices/{bus_id}/" if bus_id else None
+    node = _read(card + "numa_node") if card else None
+    return {"affinity": allowed, "cpu_mhz": mhz, "card": bus_id,
+            "card_numa_node": None if node is None else int(node),
+            "card_local_cpus": _read(card + "local_cpulist") if card else None}
+
+
 def run_cell(bench: dict, name: str, seed: int, seconds: float, trace_on: bool,
              device: str = "cuda", t_start: float = None, control: bool = False,
              root: str = ROOT, traffic_dir: str = None) -> dict:
@@ -211,7 +254,8 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, trace_on: bool,
                       "steal_s": host.steal_s, "cpus": os.cpu_count(),
                       "judged": len(kept), "request_s": _quartiles(times),
                       "witness_synthesis_s": _quartiles(
-                          [s["witness synthesis"] for s in stages if "witness synthesis" in s])}
+                          [s["witness synthesis"] for s in stages if "witness synthesis" in s]),
+                      **placement(card_bus_id() if cuda else None)}
     result["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in verdict.items()}
     return result
 

@@ -26,30 +26,35 @@ class Store:
 
 def install_probes(stores: dict, probes: dict) -> list:
     """Wrap each probed function of the program: `probes` maps a metric to
-    [(module, attribute, record(store, args, out))]; a call runs the
-    original, then each record.  Returns the undo list."""
+    [(module, attribute, record(store, args, out))], where the attribute is
+    a function of the module or a dotted path to a method ("Class.method":
+    args then starts with the instance); a call runs the original, then
+    each record.  Returns the undo list."""
     by_target = {}
     for metric, plist in probes.items():
         for module, attr, record in plist:
             by_target.setdefault((module, attr), []).append((stores[metric], record))
     undo = []
     for (module, attr), hooks in by_target.items():
-        mod = importlib.import_module(module)
-        original = getattr(mod, attr)
+        owner = importlib.import_module(module)
+        *path, name = attr.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        original = getattr(owner, name)
 
         def wrapped(*args, _original=original, _hooks=hooks, **kwargs):
             out = _original(*args, **kwargs)
             for store, record in _hooks:
                 record(store, args, out)
             return out
-        setattr(mod, attr, wrapped)
-        undo.append((mod, attr, original))
+        setattr(owner, name, wrapped)
+        undo.append((owner, name, original))
     return undo
 
 
 def remove_probes(undo: list) -> None:
-    for mod, attr, original in undo:
-        setattr(mod, attr, original)
+    for owner, name, original in undo:
+        setattr(owner, name, original)
 
 
 @contextmanager
